@@ -18,6 +18,12 @@
 // from the score accumulators straight into PV's A fragments. The ragged
 // key and query edge (S = 5184 at 576 px) is masked in the kernel; nothing
 // is padded. wgmma / TMA pipelining is later work.
+//
+// The training forward (`mha_tokens_lse_bf16`) is the same kernel compiled
+// with kLse: it also writes each row's log-sum-exp in the base-2 scaled
+// domain, lse2 = max + log2(sum), (B, H, S) fp32, from which the backward
+// (mha_bwd.cu) recomputes P = exp2(s * scale * log2(e) - lse2). The
+// inference entry `mha_tokens_bf16` is unchanged.
 #include "common.cuh"
 
 namespace {
@@ -46,11 +52,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
   }
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int S, int C, float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+               int C, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 Qs[kBq * kPad];
   __shared__ __align__(16) __nv_bfloat16 Ks[kBk * kPad];
   __shared__ __align__(16) __nv_bfloat16 Vt[kD * kPad];   // [d][key]
@@ -161,6 +169,11 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + gr, r1 = r0 + 8;
+  if (kLse && tq == 0) {
+    float* lr = lse + ((size_t)b * gridDim.y + h) * S;
+    if (r0 < S) lr[r0] = m0 + log2f(l0);
+    if (r1 < S) lr[r1] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     const int col = nt * 8 + 2 * tq;
@@ -179,9 +192,20 @@ extern "C" int mha_tokens_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int H, float scale,
                                void* stream) {
   dim3 grid((S + kBq - 1) / kBq, H, B);
-  mha_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  mha_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, S, H * kD,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, nullptr, S, H * kD,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mha_tokens_lse_bf16(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int S, int H, float scale, void* stream) {
+  dim3 grid((S + kBq - 1) / kBq, H, B);
+  mha_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, S, H * kD,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

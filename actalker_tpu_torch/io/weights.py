@@ -1,10 +1,10 @@
 """Weight bridge: reference-keyed state dicts into the port's modules.
 
 The port's modules carry the reference's diffusers / ACTalker key names, so
-a state dict in the reference's layout loads with ``strict=True``. The JAX
-package's exporters (``actalker_tpu.io.weights``, which imports no JAX)
-turn its parameter trees into exactly such dicts, and the same door takes
-the reference's six ``.pth`` files once they are on disk:
+a state dict in the reference's layout loads with ``strict=True``. The
+exporters of ``io/jax_export.py`` (the port's numpy-only copy of the JAX
+package's) turn a JAX parameter tree into exactly such dicts, and the same
+door takes the reference's six ``.pth`` files once they are on disk:
 
   * UNet: ``export_unet`` (the ``unet-*.pth`` layout, IP-adapter rows
     included) plus ``export_adapter_modules`` (the ``adapter_module-*.pth``
@@ -12,16 +12,20 @@ the reference's six ``.pth`` files once they are on disk:
   * heads: ``export_audio_proj`` / ``export_id_proj`` /
     ``export_vasa_proj`` / ``export_pose_guider``;
   * VAE: ``export_state_dict(convert_vae, ...)``.
+
+The way back out, ``export_reference_checkpoint``, writes the six ``.pth``
+files from the port's modules.
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from actalker_tpu.io import weights as W
+from actalker_tpu_torch.io import jax_export as W
 
 _ADAPTER_KEY = re.compile(r"(\d+)\.to_([kv])_ip\.(\d+)\.weight")
 
@@ -81,3 +85,47 @@ def load_pipeline_from_jax(modules, params: Mapping) -> None:
                          ("pose_guider", W.export_pose_guider)):
         getattr(modules, name).load_state_dict(
             to_torch(export(params[name])), strict=True)
+
+
+# the reference's six trainable artifacts: file stem -> module name
+REFERENCE_ARTIFACTS = {"unet": "unet", "adapter_module": "unet",
+                       "pose_guider": "pose_guider", "audio_linear": "audio_proj",
+                       "id_proj_model": "id_proj", "vasa_linear": "vasa_proj"}
+
+
+def adapter_state_dict(unet) -> Dict[str, torch.Tensor]:
+    """The ``adapter_module-*.pth`` dict: every cross-attention's IP rows,
+    indexed in ``attn_processors`` order (inverse of
+    ``load_adapter_modules``)."""
+    sd = {}
+    for idx, attn in enumerate(unet.attn2_modules()):
+        for i in range(attn.num_adapters):
+            for kv in ("k", "v"):
+                sd[f"{idx}.to_{kv}_ip.{i}.weight"] = getattr(
+                    attn.processor, f"to_{kv}_ip")[i].weight
+    return sd
+
+
+@torch.no_grad()
+def reference_state_dicts(modules) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Module dict (unet / pose_guider / audio_proj / id_proj / vasa_proj)
+    -> the six reference state dicts as fp32 CPU tensors (the modules'
+    keys are the reference's already)."""
+    out = {}
+    for stem, name in REFERENCE_ARTIFACTS.items():
+        sd = (adapter_state_dict(modules[name]) if stem == "adapter_module"
+              else modules[name].state_dict())
+        out[stem] = {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+    return out
+
+
+def export_reference_checkpoint(modules, out_dir: str, step: int) -> List[str]:
+    """Write ``{unet,pose_guider,audio_linear,adapter_module,id_proj_model,
+    vasa_linear}-<step>.pth`` (the reference's ``Inference.py:80-142``
+    contract); returns the paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for stem, sd in reference_state_dicts(modules).items():
+        paths.append(os.path.join(out_dir, f"{stem}-{step}.pth"))
+        torch.save(sd, paths[-1])
+    return paths

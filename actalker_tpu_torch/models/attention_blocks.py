@@ -7,7 +7,10 @@ self-attention runs K2 (``ops.mha.mha_tokens``), the temporal block's
 attention across frames runs K3 (``ops.mha.frame_attention_tokens``) in the
 (B*F, S, C) layout, and every feed-forward runs K4 (``ops.mlp.geglu_mlp``).
 Parameter names follow the reference (diffusers ``Attention`` /
-``FeedForward``), so its state dicts load unchanged.
+``FeedForward``), so its state dicts load unchanged. Under autograd the
+three op wrappers run their ``torch.autograd.Function``s (K2 -> K2-bwd;
+K3 and K4 differentiate their plain versions); under ``no_grad`` they
+launch the inference kernels alone.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ exact identity steps of the recurrence (their delta projection gets -1e9,
 so softplus(delta) == 0): the state seen by selected tokens is exactly the
 one the reference's gather/scatter formulation computes. Every width runs
 all its (branch, direction) scans as one call of the grouped op, K1
-(``ops.selective_scan.ssm_scan_grouped``). The static-capacity gather of
-the JAX package is a speed path with the same output and is not ported.
+(``ops.selective_scan.ssm_scan_grouped``); its gradient runs the adjoint
+kernel K6 once per group. The static-capacity gather of the JAX package is
+a speed path with the same output and is not ported.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from actalker_tpu_torch.models.attention_blocks import Attention
 from actalker_tpu_torch.models.common import Conv2d, GroupNorm32
@@ -52,6 +53,9 @@ class UNetConfig:
     projection_class_embeddings_input_dim: int = 768
     transformer_layers_per_block: int = 1
     use_mamba: bool = True
+    # recompute each down / mid / up block in the backward pass, one scope
+    # per block as the JAX package's nn.remat (configs/train.yaml solver)
+    gradient_checkpointing: bool = False
     # the reference's ablation lineage as config: any subset of
     # {"audio", "vasa", "id", "ssd", "cross_attn"}
     ablate: Tuple[str, ...] = ()
@@ -154,22 +158,33 @@ class UNetSpatioTemporalCondition(nn.Module):
         h = h.reshape(b, f, hh, ww, ch0)
         if spatial_condition is not None:
             h = h + spatial_condition.to(dt)
+        remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         res_states = [h]
         for blk in self.down_blocks:
             if isinstance(blk, CrossAttnDownBlockSpatioTemporal):
-                h, states = blk(h, emb, cond, ioi)
+                h, states = run(blk, h, emb, cond, ioi)
             else:
-                h, states = blk(h, emb, ioi)
+                h, states = run(blk, h, emb, ioi)
             res_states.extend(states)
-        h = self.mid_block(h, emb, cond, ioi)
+        h = run(self.mid_block, h, emb, cond, ioi)
         for blk in self.up_blocks:
             n = len(blk.resnets)
             mine = res_states[-n:]
             del res_states[-n:]
+            # the blocks pop the skip list they get, so a recompute needs a
+            # fresh copy: hand the states over as arguments
             if isinstance(blk, CrossAttnUpBlockSpatioTemporal):
-                h = blk(h, mine, emb, cond, ioi)
+                h = run(lambda h, *st, blk=blk: blk(h, list(st), emb, cond, ioi),
+                        h, *mine)
             else:
-                h = blk(h, mine, emb, ioi)
+                h = run(lambda h, *st, blk=blk: blk(h, list(st), emb, ioi),
+                        h, *mine)
         h = h.reshape(b * f, *h.shape[2:])
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.reshape(b, f, hh, ww, cfg.out_channels)

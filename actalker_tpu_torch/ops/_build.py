@@ -19,7 +19,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,6 +97,30 @@ class Kernel:
             raise RuntimeError(f"{self.name}: {fn} launch failed with "
                                f"cudaError {err}")
         self.launches += 1
+
+    def constant(self, fn: str) -> int:
+        """Value of the library's no-argument ``int fn()`` (a compile-time
+        constant a wrapper sizes its buffers from); not a launch."""
+        f = getattr(self.build(), fn)
+        f.argtypes, f.restype = [], ctypes.c_int
+        return f()
+
+
+def build_all(kernels: Iterable[Kernel]) -> None:
+    """Build several kernels at once: one nvcc process per source, all
+    started together (each waits in its own thread)."""
+    kernels = list(kernels)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        for f in [pool.submit(k.build) for k in kernels]:
+            f.result()
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records the call: a wrapper then goes through its
+    ``torch.autograd.Function``, else it launches the bare forward."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def ptr(t) -> int:

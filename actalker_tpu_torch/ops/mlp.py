@@ -5,7 +5,9 @@ Twin of ``actalker_tpu/ops/mlp.py``. Weights are in torch ``Linear`` layout
 (W1 (2I, C), W2 (Cout, I)), biases fp32. The gate runs in fp32 with the exact
 erf GELU, and h is rounded to the weight dtype before the second product,
 as the TPU kernel does. CPU tensors take the plain version; CUDA tensors
-launch the kernel or raise.
+launch the kernel or raise. When autograd needs it, ``GegluMlpFn`` runs K4
+forward and differentiates the plain version in its backward, as the JAX
+package's ``_mlp_bwd`` recomputes through ``_mlp_xla``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import math
 import torch
 
 from actalker_tpu_torch.ops._build import (
-    Kernel, check, check_cuda_tensors, ptr, stream_of)
+    Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
 
 KERNEL = Kernel("geglu_mlp", replaces="actalker_tpu/ops/mlp.py:47")
 
@@ -34,8 +36,8 @@ def geglu_mlp_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     return (h.float() @ w2.float().t() + b2.float()).to(x.dtype)
 
 
-def geglu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x (..., C); w1 (2I, C); b1 (2I,); w2 (Cout, I); b2 (Cout,)."""
+def _geglu_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
+    """K4 launches (plain version for CPU tensors)."""
     if not x.is_cuda:
         return geglu_mlp_ref(x, w1, b1, w2, b2)
     c = x.shape[-1]
@@ -58,3 +60,28 @@ def geglu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     KERNEL.launch("linear_bias_bf16", "ppppiiip", ptr(h), ptr(w2), ptr(b2),
                   ptr(y), m, inner, cout, stream)
     return y.reshape(*x.shape[:-1], cout)
+
+
+class GegluMlpFn(torch.autograd.Function):
+    """K4 forward; the backward differentiates ``geglu_mlp_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _geglu_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = geglu_mlp_ref(*ins)
+        return torch.autograd.grad(out, ins, dy)
+
+
+def geglu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x (..., C); w1 (2I, C); b1 (2I,); w2 (Cout, I); b2 (Cout,);
+    differentiable through ``GegluMlpFn`` when autograd needs it."""
+    args = (x, w1, b1, w2, b2)
+    if needs_grad(*args):
+        return GegluMlpFn.apply(*args)
+    return _geglu_fwd(*args)

@@ -1,5 +1,5 @@
-"""Selective scan (Mamba S6 recurrence): plain PyTorch twin and the grouped
-CUDA kernel K1.
+"""Selective scan (Mamba S6 recurrence): plain PyTorch twins, the grouped
+CUDA kernel K1 (forward) and the adjoint kernel K6 (backward).
 
 Twin of ``actalker_tpu/ops/selective_scan.py`` (the plain ``seq`` /
 ``blocked`` scans) and of ``ssm_scan_grouped`` in
@@ -12,6 +12,13 @@ Twin of ``actalker_tpu/ops/selective_scan.py`` (the plain ``seq`` /
 All accumulation is float32 whatever the input dtype. Layouts follow the JAX
 package: ``selective_scan`` takes (B, L, D) sequences with (B, L, G, N)
 B/C; the grouped op takes the arranged (L, B, .) buffers of one SS2D block.
+
+Gradients: ``ssm_scan_grouped`` runs ``SsmScanGroupedFn`` when autograd
+needs it. Its backward follows ``_grouped_bwd`` of the JAX package: per
+group the raw delta projection in a plain matmul, the adjoint of the
+arranged scan (K6, ``ssm_scan_arranged_grad``; twin of
+``_arranged_grad_tpu``), then the delta cotangent pushed back through the
+slab matmul.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from actalker_tpu_torch.ops._build import (
-    Kernel, check, check_cuda_tensors, ptr, stream_of)
+    Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
 
 MASK_LANE = 126   # slab lane carrying the inactivity flag
 LANES = 128       # slab lanes per group
@@ -28,6 +35,11 @@ D_STATE = 16      # the kernel's state size
 KERNEL = Kernel(
     "ssm_scan_grouped",
     replaces="actalker_tpu/ops/selective_scan_pallas.py:592")
+# K6 replaces _boundary_kernel (:154) and _bwd_kernel (:200), both launched
+# by _arranged_grad_tpu (:387, :408); one launch here runs both passes
+BWD_KERNEL = Kernel(
+    "ssm_scan_bwd",
+    replaces="actalker_tpu/ops/selective_scan_pallas.py:154")
 
 
 def _prep(u, delta, A, B, C, D, delta_bias, delta_softplus):
@@ -142,14 +154,14 @@ def ssm_scan_grouped_ref(u_g, slab_g, dtw_g, A_g, D_g, bias_g, rank: int
     return torch.cat(outs, dim=-1)
 
 
-def ssm_scan_grouped(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
-                     slab_g: torch.Tensor,   # (L, B, G * 128) [dts|B|C|mask]
-                     dtw_g: torch.Tensor,    # (G, 128, Dp) f32; row 126 -1e9
-                     A_g: torch.Tensor,      # (G, Dp, N) f32
-                     D_g: torch.Tensor,      # (G, Dp) f32
-                     bias_g: torch.Tensor,   # (G, Dp) f32
-                     rank: int) -> torch.Tensor:
-    """All (branch, direction) scans of one SS2D block in one launch (K1).
+def _grouped_fwd(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
+                 slab_g: torch.Tensor,   # (L, B, G * 128) [dts|B|C|mask]
+                 dtw_g: torch.Tensor,    # (G, 128, Dp) f32; row 126 -1e9
+                 A_g: torch.Tensor,      # (G, Dp, N) f32
+                 D_g: torch.Tensor,      # (G, Dp) f32
+                 bias_g: torch.Tensor,   # (G, Dp) f32
+                 rank: int) -> torch.Tensor:
+    """K1 forward, no autograd: see ``ssm_scan_grouped``.
 
     Group g reads activations from branch slab g // 2 of ``u_g`` and scans
     left to right for even g, right to left for odd g. Returns
@@ -187,3 +199,177 @@ def ssm_scan_grouped(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
                   rank, stream_of(u_g))
     return y
 
+
+def ssm_scan_arranged_grad_ref(u, dtr, bc, A, D, bias, dy, reverse: bool,
+                               chunk: int = 64):
+    """Plain adjoint of one arranged scan (twin of ``_arranged_grad_tpu``).
+
+    u (L, B, Dp); dtr (L, B, Dp) raw delta before bias and softplus; bc
+    (L, B, NB >= 2N) with B in lanes [0, N) and C in [N, 2N); A (Dp, N);
+    D, bias (Dp,); dy (L, B, Dp); ``reverse`` scans right to left. Returns
+    (du, ddt, dbc, dA, dD, dbias) in the dtypes of (u, dtr, bc, A, D, bias).
+
+    Per channel d and state n, with a = exp(delta A), p = delta u:
+        h_t = a_t h_{t-1} + B_t p_t ;  y_t = sum_n C_n h_n + D u_t
+    and the adjoint g_t = dy_t C_t + a_{t+1} g_{t+1} (scan order) gives
+        du = delta sum_n g B + D dy
+        ddt = (u sum_n g B + sum_n g A a h_{t-1}) sigmoid(dtr + bias)
+        dB = sum_d g p,  dC = sum_d dy h,  dA = sum_t g h_{t-1} delta a,
+        dD = sum_t dy u.
+    Forward states are kept only at chunk starts and recomputed per chunk
+    (fp32 throughout); the adjoint recurrence is the only serial loop."""
+    lp, bp, dp = u.shape
+    n = A.shape[-1]
+    x = dtr.float() + bias.float()
+    delta, sig = F.softplus(x), torch.sigmoid(x)
+    u32, dy32, A32 = u.float(), dy.float(), A.float()
+    Bm, Cm = bc[..., :n].float(), bc[..., n:2 * n].float()
+    order = torch.arange(lp, device=u.device)
+    order = order.flip(0) if reverse else order
+    chunks = [order[c0:c0 + chunk] for c0 in range(0, lp, chunk)]
+
+    def states(ts, h):
+        """(T + 1, B, Dp, N) states: the entering one, then after each t."""
+        a = torch.exp(delta[ts][..., None] * A32)
+        bu = (delta[ts] * u32[ts])[..., None] * Bm[ts][:, :, None]
+        hs = [h]
+        for i in range(len(ts)):
+            hs.append(a[i] * hs[-1] + bu[i])
+        return torch.stack(hs), a
+
+    entering = []
+    h = u32.new_zeros(bp, dp, n)
+    for ts in chunks:
+        entering.append(h)
+        h = states(ts, h)[0][-1]
+
+    du = torch.empty(lp, bp, dp, dtype=torch.float32, device=u.device)
+    ddt = torch.empty_like(du)
+    dbc = torch.zeros(bc.shape, dtype=torch.float32, device=u.device)
+    dA = A32.new_zeros(dp, n)
+    g = u32.new_zeros(bp, dp, n)
+    for ts, h0 in zip(reversed(chunks), reversed(entering)):
+        hs, a = states(ts, h0)
+        dyc = dy32[ts][..., None] * Cm[ts][:, :, None]             # (T, B, Dp, N)
+        gn = torch.empty_like(dyc)
+        for i in range(len(ts) - 1, -1, -1):
+            gn[i] = g + dyc[i]
+            g = gn[i] * a[i]
+        gb = (gn * Bm[ts][:, :, None]).sum(-1)                     # (T, B, Dp)
+        gah = (gn * A32 * a * hs[:-1]).sum(-1)
+        du[ts] = delta[ts] * gb + D.float() * dy32[ts]
+        ddt[ts] = (u32[ts] * gb + gah) * sig[ts]
+        dbc[ts, :, :n] = (gn * (delta[ts] * u32[ts])[..., None]).sum(2)
+        dbc[ts, :, n:2 * n] = (dy32[ts][..., None] * hs[1:]).sum(2)
+        dA += (gn * hs[:-1] * delta[ts][..., None] * a).sum((0, 1))
+    dD = (dy32 * u32).sum((0, 1))
+    dbias = ddt.sum((0, 1))
+    return (du.to(u.dtype), ddt.to(dtr.dtype), dbc.to(bc.dtype),
+            dA.to(A.dtype), dD.to(D.dtype), dbias.to(bias.dtype))
+
+
+def ssm_scan_arranged_grad(u, dtr, bc, A, D, bias, dy, reverse: bool):
+    """Adjoint of one arranged scan (K6). CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise. See
+    ``ssm_scan_arranged_grad_ref`` for shapes and outputs."""
+    if not u.is_cuda:
+        return ssm_scan_arranged_grad_ref(u, dtr, bc, A, D, bias, dy, reverse)
+    lp, bp, dp = u.shape
+    n = A.shape[-1]
+    nb = bc.shape[-1]
+    check(n == D_STATE, f"K6: d_state {n} must be {D_STATE}")
+    check(tuple(dtr.shape) == (lp, bp, dp) and tuple(dy.shape) == (lp, bp, dp),
+          "K6: dtr / dy must match u")
+    check(tuple(bc.shape) == (lp, bp, nb) and nb >= 2 * n,
+          f"K6: bc {tuple(bc.shape)} must be (L, B, NB >= 2N)")
+    check(tuple(A.shape) == (dp, n) and tuple(D.shape) == (dp,)
+          and tuple(bias.shape) == (dp,), "K6: A (Dp, N), D / bias (Dp,)")
+    act = (torch.bfloat16, torch.float32)
+    f32 = (torch.float32,)
+    check_cuda_tensors("K6", (u, dtr, bc, A, D, bias, dy),
+                       {"u": act, "dtr": f32, "bc": act, "A": f32, "D": f32,
+                        "bias": f32, "dy": act})
+    check(bc.dtype == u.dtype and dy.dtype == u.dtype,
+          "K6: bc and dy dtype must match u")
+    nchunk = -(-lp // BWD_KERNEL.constant("ssm_scan_bwd_chunk"))
+    nwarp = -(-dp // 32)
+    dev = u.device
+    f = dict(dtype=torch.float32, device=dev)
+    bnd = torch.empty((nchunk, bp, n, dp), **f)          # states entering chunks
+    du = torch.empty((lp, bp, dp), dtype=u.dtype, device=dev)
+    ddt = torch.empty((lp, bp, dp), **f)
+    dbc_part = torch.empty((lp, bp, nwarp, 2 * n), **f)  # per-warp channel sums
+    da_part = torch.empty((bp, dp, n), **f)              # per-row token sums
+    dd_part = torch.empty((bp, dp), **f)
+    fn = "ssm_scan_bwd_bf16" if u.dtype == torch.bfloat16 else "ssm_scan_bwd_f32"
+    BWD_KERNEL.launch(
+        fn, "pppppppppppppiiiiip", ptr(u), ptr(dtr), ptr(bc), ptr(A), ptr(D),
+        ptr(bias), ptr(dy), ptr(bnd), ptr(du), ptr(ddt), ptr(dbc_part),
+        ptr(da_part), ptr(dd_part), lp, bp, dp, nb, int(reverse), stream_of(u))
+    dbc = torch.zeros((lp, bp, nb), dtype=bc.dtype, device=dev)
+    dbc[:, :, :2 * n] = dbc_part.sum(2)
+    return (du, ddt, dbc, da_part.sum(0), dd_part.sum(0), ddt.sum((0, 1)))
+
+
+class SsmScanGroupedFn(torch.autograd.Function):
+    """K1 forward; backward as ``_grouped_bwd``: per group g (branch g // 2,
+    odd g right to left) dtr = slab @ dtw (plain matmul), K6, then
+    dslab = ddt @ dtw^T plus dbc in lanes [rank, rank + 2N), and
+    ddtw = slab^T ddt."""
+
+    @staticmethod
+    def forward(ctx, u_g, slab_g, dtw_g, A_g, D_g, bias_g, rank):
+        ctx.rank = rank
+        ctx.save_for_backward(u_g, slab_g, dtw_g, A_g, D_g, bias_g)
+        return _grouped_fwd(u_g, slab_g, dtw_g, A_g, D_g, bias_g, rank)
+
+    @staticmethod
+    def backward(ctx, gy):
+        u_g, slab_g, dtw_g, A_g, D_g, bias_g = ctx.saved_tensors
+        rank = ctx.rank
+        g = dtw_g.shape[0]
+        dp = u_g.shape[2] // (g // 2)
+        n = A_g.shape[-1]
+        gy = gy.contiguous()
+        du_g = torch.zeros(u_g.shape, dtype=torch.float32, device=u_g.device)
+        dslab_g = torch.empty_like(slab_g)
+        ddtw, dA, dD, dbias = [], [], [], []
+        for gi in range(g):
+            br = slice((gi // 2) * dp, (gi // 2 + 1) * dp)
+            lanes = slice(gi * LANES, (gi + 1) * LANES)
+            slab = slab_g[:, :, lanes].float()
+            dtr = slab @ dtw_g[gi]
+            bc = slab_g[:, :, gi * LANES + rank:gi * LANES + rank + 2 * n]
+            grads = ssm_scan_arranged_grad(
+                u_g[:, :, br].contiguous(), dtr, bc.contiguous(), A_g[gi],
+                D_g[gi], bias_g[gi], gy[:, :, gi * dp:(gi + 1) * dp].contiguous(),
+                reverse=bool(gi % 2))
+            du, ddt, dbc, da, dd, db = grads
+            del dtr
+            du_g[:, :, br] += du.float()
+            dslab = ddt @ dtw_g[gi].t()
+            dslab[:, :, rank:rank + 2 * n] += dbc.float()
+            dslab_g[:, :, lanes] = dslab.to(slab_g.dtype)
+            ddtw.append(torch.einsum("lbc,lbd->cd", slab, ddt))
+            dA.append(da)
+            dD.append(dd)
+            dbias.append(db)
+        return (du_g.to(u_g.dtype), dslab_g, torch.stack(ddtw),
+                torch.stack(dA), torch.stack(dD), torch.stack(dbias), None)
+
+
+def ssm_scan_grouped(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
+                     slab_g: torch.Tensor,   # (L, B, G * 128) [dts|B|C|mask]
+                     dtw_g: torch.Tensor,    # (G, 128, Dp) f32; row 126 -1e9
+                     A_g: torch.Tensor,      # (G, Dp, N) f32
+                     D_g: torch.Tensor,      # (G, Dp) f32
+                     bias_g: torch.Tensor,   # (G, Dp) f32
+                     rank: int) -> torch.Tensor:
+    """All (branch, direction) scans of one SS2D block in one launch (K1),
+    differentiable through ``SsmScanGroupedFn`` (K6) when autograd needs
+    it; under ``no_grad`` exactly one K1 launch. Shapes and semantics as in
+    ``_grouped_fwd``."""
+    args = (u_g, slab_g, dtw_g, A_g, D_g, bias_g)
+    if needs_grad(*args):
+        return SsmScanGroupedFn.apply(*args, rank)
+    return _grouped_fwd(*args, rank)
