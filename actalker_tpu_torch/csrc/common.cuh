@@ -36,4 +36,40 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 16-byte vectors of T as fp32 values: 8 bf16 or 4 fp32 per vector
+template <typename T> struct Vec;
+template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec<float> { static constexpr int N = 4; };
+
+__device__ __forceinline__ void unpack_vec(const uint4& v, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+// f <- the Vec<T>::N values at p (16-byte aligned)
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
+  unpack_vec(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load_vec(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+
+// the Vec<T>::N values f, rounded to T, to p (16-byte aligned)
+__device__ __forceinline__ uint4 pack_vec(const float* f) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack_vec(f);
+}
+__device__ __forceinline__ void store_vec(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
 }  // namespace akt

@@ -1,7 +1,11 @@
 """Shared building blocks: norms with fp32 statistics, and linear / conv
 layers that compute in their input's dtype.
 
-Twin of ``actalker_tpu/models/common.py`` (default branches only). Video
+Twin of ``actalker_tpu/models/common.py``. The norm lowering follows the
+JAX package's switch (``ACTALKER_NORM`` or ``set_norm_impl``, read at call
+time): "xla" (default) applies the affine in the activation dtype; "fused"
+routes every ``LayerNormF32`` / ``GroupNorm32`` through ``ops/norms.py``
+(K7-LN / K7-GN: fp32 affine, one cast of the output). Video
 tensors keep the JAX layout, (B, F, H, W, C), and images are NHWC; a conv
 hands cuDNN an NCHW view with channels-last strides, so no copy is made
 around it. Parameter names follow the reference's diffusers modules
@@ -9,9 +13,31 @@ around it. Parameter names follow the reference's diffusers modules
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from actalker_tpu_torch.ops.norms import group_norm, layer_norm
+
+_NORM_IMPL = os.environ.get("ACTALKER_NORM", "xla")
+if _NORM_IMPL not in ("fused", "xla"):
+    raise ValueError(f"ACTALKER_NORM={_NORM_IMPL!r}: 'fused' or 'xla'")
+
+
+def set_norm_impl(impl: str) -> None:
+    """Set the norm lowering: "fused" (K7-LN / K7-GN) or "xla" (the
+    default, plain branches)."""
+    global _NORM_IMPL
+    if impl not in ("fused", "xla"):
+        raise ValueError(f"norm impl {impl!r}: 'fused' or 'xla'")
+    _NORM_IMPL = impl
+
+
+def norm_impl() -> str:
+    """The current norm lowering, "fused" or "xla"."""
+    return _NORM_IMPL
 
 
 def _cast(p, dtype):
@@ -49,7 +75,8 @@ class TemporalConv(nn.Conv3d):
 
 class GroupNorm32(nn.Module):
     """GroupNorm over the channel-last axis: fp32 statistics over every axis
-    but the first and the last, affine applied in the activation dtype."""
+    but the first and the last, affine applied in the activation dtype
+    (fused: in fp32, by K7-GN)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -61,6 +88,8 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if _NORM_IMPL == "fused":
+            return group_norm(x, self.weight, self.bias, self.groups, self.eps)
         n, c = x.shape[0], x.shape[-1]
         dims = tuple(range(1, x.ndim - 1))
         s1 = x.mean(dim=dims, dtype=torch.float32)                 # (N, C)
@@ -79,7 +108,7 @@ class GroupNorm32(nn.Module):
 
 class LayerNormF32(nn.Module):
     """LayerNorm over the last axis with fp32 statistics, affine applied in
-    the activation dtype."""
+    the activation dtype (fused: in fp32, by K7-LN)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -88,6 +117,8 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if _NORM_IMPL == "fused":
+            return layer_norm(x, self.weight, self.bias, self.eps)
         mean = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
         var = (x.float().square().mean(dim=-1, keepdim=True)
                - mean.square()).clamp_min(0.0)

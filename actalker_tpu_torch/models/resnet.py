@@ -1,13 +1,19 @@
 """Resnet blocks for the spatio-temporal UNet and the VAE, on (B, F, H, W, C)
 video and NHWC frames.
 
-Twin of ``actalker_tpu/models/resnet.py`` (default lowering): GroupNorm with
-fp32 statistics, SiLU and convs; the temporal block's (3, 1, 1) convs run
-over the frame axis; ``SpatioTemporalResBlock`` blends the two with an
-``AlphaBlender``. Parameter names are the reference's (diffusers).
+Twin of ``actalker_tpu/models/resnet.py``: GroupNorm with fp32 statistics,
+SiLU and convs; the temporal block's (3, 1, 1) convs run over the frame
+axis; ``SpatioTemporalResBlock`` blends the two with an ``AlphaBlender``.
+Parameter names are the reference's (diffusers). ``ResnetBlock2D``'s two
+GroupNorm / SiLU / 3x3-conv pairs follow the JAX package's switch
+(``ACTALKER_RESCONV`` or ``set_resconv_impl``, read at call time): "xla"
+(default) runs the modules; "pallas" runs each pair as one
+``ops/resconv.gn_silu_conv3x3`` (K7-GN statistics + K8) on the same
+parameters, so one state dict serves both.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch.nn as nn
@@ -16,6 +22,32 @@ import torch.nn.functional as F
 from actalker_tpu_torch.models.common import (
     Conv2d, GroupNorm32, Linear, TemporalConv)
 from actalker_tpu_torch.models.embeddings import AlphaBlender
+from actalker_tpu_torch.ops.resconv import gn_silu_conv3x3
+
+_RESCONV = os.environ.get("ACTALKER_RESCONV", "xla")
+if _RESCONV not in ("pallas", "xla"):
+    raise ValueError(f"ACTALKER_RESCONV={_RESCONV!r}: 'pallas' or 'xla'")
+
+
+def set_resconv_impl(impl: str) -> None:
+    """Set the resnet conv lowering: "pallas" (K8) or "xla" (the default,
+    the modules)."""
+    global _RESCONV
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"resconv impl {impl!r}: 'pallas' or 'xla'")
+    _RESCONV = impl
+
+
+def resconv_impl() -> str:
+    """The current resnet conv lowering, "pallas" or "xla"."""
+    return _RESCONV
+
+
+def _gn_silu_conv(norm: GroupNorm32, conv: Conv2d, x):
+    """One GroupNorm / SiLU / 3x3-conv pair through K8, on the modules'
+    parameters."""
+    return gn_silu_conv3x3(x, norm.weight, norm.bias, norm.groups, norm.eps,
+                           conv.weight, conv.bias)
 
 
 class ResnetBlock2D(nn.Module):
@@ -31,10 +63,17 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, temb=None):       # x (N, H, W, C), temb (N, Ct)
-        h = self.conv1(F.silu(self.norm1(x)))
+        fused = _RESCONV == "pallas"
+        if fused:
+            h = _gn_silu_conv(self.norm1, self.conv1, x)
+        else:
+            h = self.conv1(F.silu(self.norm1(x)))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        if fused:
+            h = _gn_silu_conv(self.norm2, self.conv2, h)
+        else:
+            h = self.conv2(F.silu(self.norm2(h)))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return h + x

@@ -3,6 +3,8 @@ port's work on the card, summed by kernel group.
 
     python -m actalker_tpu_torch.tools.profile_step --what train
     python -m actalker_tpu_torch.tools.profile_step --what forward
+    python -m actalker_tpu_torch.tools.profile_step --what forward \
+        --norm fused --resconv pallas
 
 ``train``: ``training.train.main`` at the ``configs/train.yaml`` operating
 point (512 px, 25 frames, batch 1, 4-step accumulation, block
@@ -10,6 +12,10 @@ checkpointing, seeded weights) for 8 micro-steps; micro-steps 5-8 (one
 accumulation cycle, its commit included) are profiled. ``forward``: one
 full-width bf16 UNet forward at the clip path's window-step shape (4 CFG x
 14 frames, 64 x 64 latents, seeded weights), after a warm-up forward.
+``--norm`` / ``--resconv`` set the model's two lowering switches
+(``models.common.set_norm_impl``, ``models.resnet.set_resconv_impl``);
+``--norm fused --resconv pallas`` is the fused-norm configuration (K7-LN,
+K7-GN, K8).
 Prints the card line, the wall time of the window, the device busy time
 and idle share, and the device time per group of kernels; one JSON line
 at the end. Needs a CUDA card.
@@ -34,6 +40,10 @@ GROUPS = (
     ("K2-bwd attention backward", ("dkdv_kernel", "dq_kernel", "row_dot")),
     ("K3 frame attention", ("frame_attn_kernel",)),
     ("K4 GEGLU", ("gemm_tn_kernel",)),
+    ("K7-LN layer norm", ("layer_norm_kernel",)),
+    ("K7-GN group norm", ("gn_stats_kernel", "gn_finalize_kernel",
+                          "gn_apply_kernel")),
+    ("K8 GN + SiLU + conv3x3", ("gn_silu_conv3x3_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("cuDNN convs", ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "splitk")),
@@ -132,9 +142,15 @@ def profile_forward() -> Window:
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--what", choices=("train", "forward"), default="train")
+    p.add_argument("--norm", choices=("xla", "fused"), default="xla")
+    p.add_argument("--resconv", choices=("xla", "pallas"), default="xla")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    from actalker_tpu_torch.models import common, resnet
+
+    common.set_norm_impl(args.norm)
+    resnet.set_resconv_impl(args.resconv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
@@ -150,11 +166,13 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall_ms = win.wall * 1e3
-    print(f"[profile {args.what}] {card} | wall {wall_ms:.2f} ms | device busy "
+    print(f"[profile {args.what} norm={args.norm} resconv={args.resconv}] "
+          f"{card} | wall {wall_ms:.2f} ms | device busy "
           f"{busy:.2f} ms | idle {100 * max(0.0, 1 - busy / wall_ms):.1f}%")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {ms:10.2f} ms {100 * ms / busy:6.1f}%")
-    print(json.dumps({"what": args.what, "card": card, "wall_ms": wall_ms,
+    print(json.dumps({"what": args.what, "norm": args.norm,
+                      "resconv": args.resconv, "card": card, "wall_ms": wall_ms,
                       "busy_ms": busy, "groups_ms": groups}))
 
 

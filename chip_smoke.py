@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 Phases, one line each (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi), torch / CUDA versions; no GPU
      -> exit 1 without a result;
-  2. build: nvcc-compiles the six hand-written kernels (K1-K4, the scan
-     adjoint K6 and the attention backward K2-bwd) from
+  2. build: nvcc-compiles the nine hand-written kernels (K1-K4, the scan
+     adjoint K6, the attention backward K2-bwd, LayerNorm K7-LN, GroupNorm
+     K7-GN and the fused GroupNorm + SiLU + 3x3 conv K8) from
      ``actalker_tpu_torch/csrc`` into ``actalker_tpu_torch/_build``, one
      nvcc process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -19,10 +20,16 @@ Phases, one line each (any failure raises and exits non-zero):
      there is one, and the data-sheet bound;
   4. UNet: one full-width bf16 forward (UNetConfig(), seeded weights) on a
      small latent through the kernels and through the plain versions;
+     4b. the same under the fused-norm configuration (ACTALKER_NORM=fused,
+     ACTALKER_RESCONV=pallas: K7-LN, K7-GN and K8 on the path);
   5. clip path: the 512 px / 14-frame clip (full-width UNet, bf16 UNet and
      VAE, seeded weights, mode 2) through ``generate_latents`` and
      ``decode_latents``, run twice; the second run is timed, and the kernel
-     launch counts of that run must match the UNet calls it made;
+     launch counts of that run must match the UNet calls it made, and
+     K7-LN / K7-GN / K8 must not launch;
+     5b. the same clip under the fused-norm configuration, timed the same
+     way; the launches of all seven forward kernels must equal the counts
+     derived from the model (UNet calls, VAE encodes and decodes, heads);
   6. gradients: a full-width UNet with block checkpointing (fp32 master
      weights, bf16 compute) on a small latent, loss and every parameter
      gradient through the kernels and through the plain versions;
@@ -74,7 +81,20 @@ TOL = {
     # the kernel rounds P and dS to bf16 before their products; the plain
     # version (autograd through the fp32 reference) does not
     "mha_bwd": 1e-2,
+    # fp32 statistics and affine in both, one rounding of the output to
+    # the input dtype in both: only the order of the fp32 sums differs
+    "layer_norm": 1e-3,
+    "group_norm": 1e-3,
+    # the activation is rounded to bf16 in both before the product (the
+    # kernel's exp-based SiLU and the plain sigmoid can flip single
+    # roundings); fp32 accumulation in another order
+    "gn_silu_conv3x3": 5e-3,
 }
+# the kernels of the default clip and training paths (phases 5-7), and the
+# three the fused-norm configuration adds (phases 4b, 5b)
+DEFAULT_KERNELS = ("ssm_scan_grouped", "mha", "frame_attention", "geglu_mlp",
+                   "ssm_scan_bwd", "mha_bwd")
+FUSED_KERNELS = ("layer_norm", "group_norm", "gn_silu_conv3x3")
 # a full-width bf16 UNet: kernels and plain versions round activations at
 # different places through ~100 layers
 UNET_TOL = 5e-2
@@ -205,30 +225,72 @@ def attention_bwd(kind):
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the UNet's four kernel call sites to the plain versions (their
-    gradients then come from autograd through the plain versions)."""
-    from actalker_tpu_torch.models import attention_blocks as ab, ssm
-    from actalker_tpu_torch.ops import mha, mlp, selective_scan as ss
+    """Route the models' kernel call sites (K1-K4; K7-LN, K7-GN and K8 of
+    the fused-norm configuration) to the plain versions (their gradients
+    then come from autograd through the plain versions)."""
+    from actalker_tpu_torch.models import (
+        attention_blocks as ab, common, resnet, ssm)
+    from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
 
     saved = (ab.mha_tokens, ab.frame_attention_tokens, ab.geglu_mlp,
-             ssm.ssm_scan_grouped)
+             ssm.ssm_scan_grouped, common.layer_norm, common.group_norm,
+             resnet.gn_silu_conv3x3)
     ab.mha_tokens, ab.frame_attention_tokens = (mha.mha_tokens_ref,
                                                 mha.frame_attention_tokens_ref)
     ab.geglu_mlp, ssm.ssm_scan_grouped = mlp.geglu_mlp_ref, ss.ssm_scan_grouped_ref
+    common.layer_norm, common.group_norm = norms.layer_norm_ref, norms.group_norm_ref
+    resnet.gn_silu_conv3x3 = resconv.gn_silu_conv3x3_ref
     try:
         yield
     finally:
         (ab.mha_tokens, ab.frame_attention_tokens, ab.geglu_mlp,
-         ssm.ssm_scan_grouped) = saved
+         ssm.ssm_scan_grouped, common.layer_norm, common.group_norm,
+         resnet.gn_silu_conv3x3) = saved
+
+
+@contextlib.contextmanager
+def fused_norm_config():
+    """ACTALKER_NORM=fused and ACTALKER_RESCONV=pallas, both switches
+    restored afterwards."""
+    from actalker_tpu_torch.models import common, resnet
+
+    saved = common.norm_impl(), resnet.resconv_impl()
+    common.set_norm_impl("fused")
+    resnet.set_resconv_impl("pallas")
+    try:
+        yield
+    finally:
+        common.set_norm_impl(saved[0])
+        resnet.set_resconv_impl(saved[1])
+
+
+def fused_launches(*modules):
+    """Launches of K7-LN, K7-GN and K8 that one forward of each module makes
+    under ACTALKER_NORM=fused and ACTALKER_RESCONV=pallas: one K7-LN per
+    LayerNormF32, one K7-GN per GroupNorm32 (the statistics of a resnet
+    pair included), one K8 per GroupNorm / SiLU / conv pair of a
+    ResnetBlock2D (two each)."""
+    from actalker_tpu_torch.models.common import GroupNorm32, LayerNormF32
+    from actalker_tpu_torch.models.resnet import ResnetBlock2D
+
+    kinds = {"layer_norm": LayerNormF32, "group_norm": GroupNorm32,
+             "gn_silu_conv3x3": ResnetBlock2D}
+    return {name: sum((2 if kind is ResnetBlock2D else 1)
+                      for m in modules for sub in m.modules()
+                      if isinstance(sub, kind))
+            for name, kind in kinds.items()}
 
 
 def kernel_cases(torch, dev, gen):
     """Yield (kernel name, label, kernel fn, plain fn, library fn or None,
-    (bound ms, bound by)) at the shapes the clip and training paths use;
-    the first case of each kernel is its main-path shape."""
+    (bound ms, bound by), extras) at the shapes the clip and training paths
+    use; the first case of each kernel is its main-path shape. extras may
+    hold "timing" (the (kernel, plain) pair to time in place of the two
+    compared), "chain" (a second library yardstick) and "alone" (the
+    kernel's launch without its wrapper's other work)."""
     import torch.nn.functional as F
 
-    from actalker_tpu_torch.ops import mha, mlp, selective_scan as ss
+    from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
 
     bf = torch.bfloat16
 
@@ -307,7 +369,7 @@ def kernel_cases(torch, dev, gen):
     for dp, hw in ((640, 64), (2560, 16)):
         grads, plain_grads, timing, lib, bnd = k6(dp, hw)
         yield ("ssm_scan_bwd", f"Dp={dp} L={hw * hw}+33 Bp=25 G=4 (train)",
-               grads, plain_grads, lib, bnd, timing)
+               grads, plain_grads, lib, bnd, {"timing": timing})
 
     def heads_view(x, h):
         """(B, S, H*d) -> (B, H, S, d) copy, SDPA's layout (made outside
@@ -363,6 +425,62 @@ def kernel_cases(torch, dev, gen):
                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: mlp.geglu_mlp_ref(x, w1, b1, w2, b2),
                None, bound(2 * (2 * m * c + 12 * c * c), 24 * m * c * c, PEAK_BF16))
 
+    # the fused-norm configuration: K7-LN at the transformers' (B*F*HW, C),
+    # the res-16 SSM out_norm and the fp32 projection heads; K7-GN at the
+    # transformers' and temporal resnets' (N, M, C) and the VAE's 512 px
+    # images; K8 at the UNet's spatial resnets and the VAE's 512 px convs.
+    # Bounds: bytes once in and once out; K8 by its 2 * M * 9C * Co
+    # tensor-core operations.
+    for m, c, dtype in ((56 * 4096, 320, bf), (56 * 256, 1280, bf),
+                        (56 * 256, 2560, bf), (56 * 32, 1024, torch.float32)):
+        x = rnd(m, c, dtype=dtype, scale=2.0) + 0.5
+        g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+        item = x.element_size()
+        yield ("layer_norm", f"({m}, {c}) {str(dtype)[6:]}",
+               lambda x=x, g=g, b=b: norms.layer_norm(x, g, b),
+               lambda x=x, g=g, b=b: norms.layer_norm_ref(x, g, b),
+               lambda x=x, g=g.to(dtype), b=b.to(dtype), c=c:
+                   F.layer_norm(x, (c,), g, b, 1e-5),
+               bound(2 * m * c * item + 8 * c, 8 * m * c, PEAK_FP32))
+    for n, m, c, eps in ((56, 4096, 320, 1e-6), (4, 14 * 4096, 320, 1e-5),
+                         (14, 512 * 512, 128, 1e-6)):
+        x = rnd(n, m, c, scale=2.0) - 0.5
+        g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+        # F.group_norm on the channels-last NCHW view (N, C, M, 1)
+        xv = x.view(n, m, 1, c).permute(0, 3, 1, 2)
+        yield ("group_norm", f"(N, M, C) = ({n}, {m}, {c})",
+               lambda x=x, g=g, b=b, eps=eps: norms.group_norm(x, g, b, 32, eps),
+               lambda x=x, g=g, b=b, eps=eps: norms.group_norm_ref(x, g, b, 32, eps),
+               lambda xv=xv, g=g.to(bf), b=b.to(bf), eps=eps:
+                   F.group_norm(xv, 32, g, b, eps),
+               bound(2 * n * m * c * 2 + 8 * c, 10 * n * m * c, PEAK_FP32))
+    for n, hw, c, co in ((56, 64, 320, 320), (56, 16, 2560, 1280),
+                         (56, 8, 1280, 1280), (14, 512, 128, 128)):
+        x = rnd(n, hw, hw, c, scale=1.5) + 0.3
+        g = 1.0 + rnd(c, dtype=torch.float32, scale=0.1)
+        b = rnd(c, dtype=torch.float32, scale=0.5)
+        w = rnd(co, c, 3, 3, scale=(9 * c) ** -0.5)
+        cb = rnd(co, dtype=torch.float32, scale=0.1)
+        # the library yardsticks take NCHW views with channels-last strides
+        xv = x.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            act = F.silu(F.group_norm(xv, 32, g.to(bf), b.to(bf), 1e-5))
+        # K8's launch alone, on operands its wrapper prepares
+        ops8 = resconv.conv_operands(x, g, b, 32, 1e-5, w, cb)
+        m = n * hw * hw
+        yield ("gn_silu_conv3x3", f"({n}, {hw}, {hw}, {c} -> {co})",
+               lambda x=x, g=g, b=b, w=w, cb=cb:
+                   resconv.gn_silu_conv3x3(x, g, b, 32, 1e-5, w, cb),
+               lambda x=x, g=g, b=b, w=w, cb=cb:
+                   resconv.gn_silu_conv3x3_ref(x, g, b, 32, 1e-5, w, cb),
+               lambda act=act, w=w, cb=cb: F.conv2d(act, w, cb.to(bf), padding=1),
+               bound(2 * (m * c + m * co + 9 * c * co), 2 * m * 9 * c * co,
+                     PEAK_BF16),
+               {"chain": lambda xv=xv, g=g.to(bf), b=b.to(bf), w=w, cb=cb.to(bf):
+                    F.conv2d(F.silu(F.group_norm(xv, 32, g, b, 1e-5)), w, cb,
+                             padding=1),
+                "alone": lambda ops8=ops8: resconv.conv_launch(*ops8)})
+
 
 def seeded_modules(torch, dev, unet_config=None):
     from actalker_tpu_torch.io.init import cast_params_bf16_, random_init_
@@ -388,14 +506,17 @@ def main() -> int:
         print("FAIL: no CUDA device; this script measures the card only")
         return 1
     sys.path.insert(0, ROOT)
-    from actalker_tpu_torch.ops import _build, mha, mlp, selective_scan as ss
+    from actalker_tpu_torch.ops import (
+        _build, mha, mlp, norms, resconv, selective_scan as ss)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = {k.name: k for k in (ss.KERNEL, mha.MHA_KERNEL,
                                    mha.FRAME_KERNEL, mlp.KERNEL,
-                                   ss.BWD_KERNEL, mha.MHA_BWD_KERNEL)}
+                                   ss.BWD_KERNEL, mha.MHA_BWD_KERNEL,
+                                   norms.LN_KERNEL, norms.GN_KERNEL,
+                                   resconv.KERNEL)}
 
     t0 = time.perf_counter()
     _build.build_all(kernels.values())
@@ -404,22 +525,27 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for name, label, kern, plain, lib, (bound_ms, bound_by), *timing in \
+    for name, label, kern, plain, lib, (bound_ms, bound_by), *rest in \
             kernel_cases(torch, dev, gen):
+        extras = rest[0] if rest else {}
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         mx, rel = errors(out, ref)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         ok = all(bool(torch.isfinite(x.float()).all()) for x in outs) \
             and rel <= TOL[name]
-        kern_t, plain_t = timing[0] if timing else (kern, plain)
+        kern_t, plain_t = extras.get("timing", (kern, plain))
         ms = timed(torch, kern_t, 10)
         plain_ms = timed(torch, plain_t, 3)
         lib_ms = timed(torch, lib, 10) if lib is not None else None
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        more = "".join(f" {what} {timed(torch, extras[key], 10):.4f} ms"
+                       for key, what in (("alone", "launch alone"),
+                                         ("chain", "library chain"))
+                       if key in extras)
         print(f"[3 kernel] {name} {label}: max_abs {mx:.4g} rel_l2 {rel:.3g} "
               f"(tol {TOL[name]}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"library {lib_txt} bound {bound_ms:.4f} ms ({bound_by}) "
+              f"library {lib_txt}{more} bound {bound_ms:.4f} ms ({bound_by}) "
               f"| {card}", flush=True)
         if not ok:
             raise RuntimeError(f"{name} {label} disagrees with its plain version")
@@ -428,6 +554,9 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         r["max_abs_err"] = max(r["max_abs_err"], mx)
         del out, ref, outs
+    # the last case's closures hold its inputs (the VAE-sized K8 case: ~2
+    # GiB), which would otherwise count in the later phases' peaks
+    del kern, plain, lib, rest, extras, kern_t, plain_t
     torch.cuda.empty_cache()
 
     # ---- 4: full-width UNet, kernels vs plain versions ----
@@ -458,7 +587,27 @@ def main() -> int:
           flush=True)
     if not (torch.isfinite(y_k.float()).all() and rel <= UNET_TOL):
         raise RuntimeError("UNet through the kernels disagrees with the plain path")
-    del unet, y_k, y_p, args, cond
+
+    # ---- 4b: the same forward under the fused-norm configuration ----
+    with torch.no_grad(), fused_norm_config():
+        for k in kernels.values():
+            k.launches = 0
+        y_fk = unet(*args)
+        fwd_counts = {n: kernels[n].launches for n in FUSED_KERNELS}
+        with plain_ops():
+            y_fp = unet(*args)
+    torch.cuda.synchronize()
+    mx, rel = errors(y_fk, y_fp)
+    want = fused_launches(unet)
+    print(f"[4b unet] ACTALKER_NORM=fused ACTALKER_RESCONV=pallas, same forward: "
+          f"kernels vs plain max_abs {mx:.4g} rel_l2 {rel:.3g} (tol {UNET_TOL}) "
+          f"| vs the default configuration rel_l2 {errors(y_fk, y_k)[1]:.3g} | "
+          f"launches {fwd_counts} (derived {want}) | {card}", flush=True)
+    if not (torch.isfinite(y_fk.float()).all() and rel <= UNET_TOL):
+        raise RuntimeError("UNet through K7 / K8 disagrees with the plain path")
+    if fwd_counts != want:
+        raise RuntimeError(f"fused forward launches {fwd_counts} != {want}")
+    del unet, y_k, y_p, y_fk, y_fp, args, cond
     torch.cuda.empty_cache()
 
     # ---- 5: the clip path, 512 px / 14 frames, bench.py::main_clip setup ----
@@ -518,7 +667,46 @@ def main() -> int:
             raise RuntimeError(f"{n}: {counts[n]} launches, expected "
                                f"{per_forward.get(n, 0)} x {unet_calls} UNet calls")
     clip_counts = counts
-    del mods, pipe, frames
+
+    # ---- 5b: the same clip under the fused-norm configuration ----
+    with fused_norm_config():
+        clip()                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        frames_f, gen_s, clip_s = clip()
+        counts = {n: k.launches for n, k in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # derived from the model: per UNet call, per VAE encode (the reference
+    # image and its noise-augmented copy), per decode chunk, and the heads
+    # generate_latents runs once (id_proj, pose_guider)
+    encodes, decodes = 2, -(-FRAMES // FRAMES)
+    parts = ((unet_calls, fused_launches(mods.unet)),
+             (encodes, fused_launches(mods.vae.encoder)),
+             (decodes, fused_launches(mods.vae.decoder)),
+             (1, fused_launches(mods.id_proj, mods.pose_guider)))
+    want = {n: per_forward.get(n, 0) * unet_calls for n in kernels}
+    for n in FUSED_KERNELS:
+        want[n] = sum(calls * per[n] for calls, per in parts)
+    print(f"[5b fused] ACTALKER_NORM=fused ACTALKER_RESCONV=pallas: launches "
+          f"{counts} (derived {want}: per UNet call "
+          f"{ {n: parts[0][1][n] for n in FUSED_KERNELS} }, per encode "
+          f"{parts[1][1]}, per decode {parts[2][1]}, heads {parts[3][1]}) | "
+          f"{card}", flush=True)
+    print(f"[5b fused] seconds per window-step {gen_s / unet_calls:.4f} s | "
+          f"generate_latents {gen_s:.3f} s | clip (generate + decode) "
+          f"{clip_s:.3f} s | peak max_memory_allocated {peak_gib:.2f} GiB | "
+          f"frames vs the default configuration rel_l2 "
+          f"{errors(torch.from_numpy(frames_f), torch.from_numpy(frames))[1]:.3g}"
+          f" | {card}", flush=True)
+    if frames_f.shape != (FRAMES, PX, PX, 3) or not np.isfinite(frames_f).all():
+        raise RuntimeError(f"fused clip output {frames_f.shape} not finite / "
+                           "wrong shape")
+    if counts != want:
+        raise RuntimeError(f"fused clip launches {counts} != derived {want}")
+    fused_counts = counts
+    del mods, pipe, frames, frames_f
     torch.cuda.empty_cache()
 
     # ---- 6: full-width gradients, kernels vs plain versions ----
@@ -578,7 +766,7 @@ def main() -> int:
             and abs(loss_k - loss_p) <= UNET_TOL * abs(loss_p)):
         raise RuntimeError("UNet gradients through the kernels disagree with "
                            "the plain path")
-    if any(grad_counts[n] == 0 for n in kernels):
+    if any(grad_counts[n] == 0 for n in DEFAULT_KERNELS):
         raise RuntimeError(f"a kernel did not run in the gradient: {grad_counts}")
     del g_k
     with attention_bwd("library"):
@@ -643,7 +831,8 @@ def main() -> int:
     # kernel runs twice (forward, recompute); the backward runs K6 once per
     # (SS2D block, group) and K2-bwd once per spatial self-attention
     expect = {"ssm_scan_grouped": 2 * 15, "mha": 2 * 16, "frame_attention": 2 * 16,
-              "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16}
+              "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16,
+              **{n: 0 for n in FUSED_KERNELS}}
     print(f"[7 train] {TRAIN_MICRO_STEPS} micro-steps at 512 px x 25 frames, "
           f"batch 1, accumulation 4, block checkpointing, bf16 / fp32 masters: "
           f"seconds per micro-step {sec_step:.4f} s (median of the last 4) | "
@@ -684,12 +873,15 @@ def main() -> int:
     shutil.rmtree(OUT, ignore_errors=True)
 
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
+                    else fused_counts[n] if n in FUSED_KERNELS
                     else clip_counts[n]) for n in kernels}
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda",
         "source": os.path.relpath(k.source, ROOT),
         "replaces": k.replaces, "launches": launches[n],
-        "launches_by_path": {"clip": clip_counts[n], "train": train_counts[n]},
+        "launches_by_path": {"clip": clip_counts[n],
+                             "clip_fused": fused_counts[n],
+                             "train": train_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],

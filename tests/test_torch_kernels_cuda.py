@@ -1,6 +1,7 @@
-"""The PyTorch port's hand-written CUDA kernels (K1-K4, the scan adjoint K6
-and the attention backward K2-bwd) against their plain PyTorch versions, on
-a CUDA card. Skipped without one. A backward through each autograd
+"""The PyTorch port's hand-written CUDA kernels (K1-K4, the scan adjoint K6,
+the attention backward K2-bwd, LayerNorm / GroupNorm K7-LN / K7-GN and the
+fused GroupNorm + SiLU + 3x3 conv K8) against their plain PyTorch versions,
+on a CUDA card. Skipped without one. A backward through each autograd
 function must launch its kernels (it cannot silently take a plain path).
 
 This file imports no JAX, so it runs where the card is (that machine has no
@@ -15,7 +16,7 @@ Tolerances are relative L2 errors, stated per kernel with their reason.
 import pytest
 import torch
 
-from actalker_tpu_torch.ops import mha, mlp, selective_scan as ss
+from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
 
 
 @pytest.fixture
@@ -210,3 +211,117 @@ def test_frame_and_mlp_backward_launch_forward_kernels(dev):
     want = torch.autograd.grad(mlp.geglu_mlp_ref(x, w1, b1, w2, b2).float().sum(),
                                (x, w1, b1, w2, b2))
     assert max(_rel(a, b) for a, b in zip(got, want)) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,dtype", [
+    (300, 320, torch.bfloat16), (77, 960, torch.bfloat16),
+    (5, 2560, torch.bfloat16), (129, 1024, torch.float32),
+    (64, 320, torch.float32)])
+def test_k7_layer_norm(dev, m, c, dtype):
+    """fp32 statistics and affine in both; bf16 rounds the output (tol
+    1e-3), fp32 differs in summation order only (tol 1e-5)."""
+    x = (torch.randn(m, c, device=dev) * 2 + 0.5).to(dtype)
+    g, b = torch.randn(c, device=dev), torch.randn(c, device=dev)
+    n0 = norms.LN_KERNEL.launches
+    y = norms.layer_norm(x, g, b, 1e-5)
+    assert norms.LN_KERNEL.launches == n0 + 1 and y.dtype == dtype
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert _rel(y, norms.layer_norm_ref(x, g, b, 1e-5)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 100, 320), torch.bfloat16), ((2, 57, 960), torch.bfloat16),
+    ((1, 96 * 64, 128), torch.bfloat16), ((2, 3, 5, 7, 320), torch.bfloat16),
+    ((2, 50, 64), torch.float32)])
+def test_k7_group_norm(dev, shape, dtype):
+    """C / G = 10, 30, 4 and 2; a tall VAE-like image; the temporal
+    resnets' (B, F, H, W, C). Tolerances as K7-LN; two runs give the same
+    bits (no atomics)."""
+    c = shape[-1]
+    x = (torch.randn(*shape, device=dev) * 2 - 0.5).to(dtype)
+    g, b = torch.randn(c, device=dev), torch.randn(c, device=dev)
+    n0 = norms.GN_KERNEL.launches
+    y = norms.group_norm(x, g, b, 32, 1e-6)
+    assert norms.GN_KERNEL.launches == n0 + 1 and y.shape == x.shape
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert _rel(y, norms.group_norm_ref(x, g, b, 32, 1e-6)) < tol
+    assert torch.equal(y, norms.group_norm(x, g, b, 32, 1e-6))
+    a, bb = norms.group_norm_affine(x, g, b, 32, 1e-6)
+    a_r, b_r = norms.gn_affine(x, g, b, 32, 1e-6)
+    assert _rel(a, a_r) < 1e-5 and _rel(bb, b_r) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (2, 8, 8, 320, 320), (3, 16, 16, 960, 640), (1, 128, 16, 128, 256),
+    (5, 1, 1, 32, 16), (2, 9, 7, 40, 24)])
+def test_k8_gn_silu_conv3x3(dev, n, h, w, c, co):
+    """W = 8 and 16 (a tile spans images), a tall VAE-like image, one-pixel
+    images (all halo but the centre tap), ragged sizes. The activation is
+    rounded to bf16 in both; accumulation order can flip single roundings
+    (tol 5e-3). One K7-GN statistics launch and one K8 launch per call."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    x = (rn(n, h, w, c) * 1.5 + 0.3).bfloat16()
+    g, b = 1 + 0.1 * rn(c), 0.5 * rn(c)          # SiLU(b) != 0 in the halo
+    wt = (rn(co, c, 3, 3) * (9 * c) ** -0.5).bfloat16()
+    cb = 0.1 * rn(co)
+    groups = 32 if c % 32 == 0 else 8
+    n7, n8 = norms.GN_KERNEL.launches, resconv.KERNEL.launches
+    y = resconv.gn_silu_conv3x3(x, g, b, groups, 1e-5, wt, cb)
+    assert norms.GN_KERNEL.launches == n7 + 1
+    assert resconv.KERNEL.launches == n8 + 1
+    assert y.shape == (n, h, w, co) and y.dtype == torch.bfloat16
+    ref = resconv.gn_silu_conv3x3_ref(x, g, b, groups, 1e-5, wt, cb)
+    assert _rel(y, ref) < 5e-3, _rel(y, ref)
+
+
+@pytest.mark.cuda
+def test_k7_k8_raise_instead_of_falling_back(dev):
+    x = torch.zeros(2, 4, 4, 36, device=dev).bfloat16()     # C % 8 != 0
+    g = torch.ones(36, device=dev)
+    with pytest.raises(ValueError):
+        norms.layer_norm(x, g, g)
+    with pytest.raises(ValueError):
+        norms.group_norm(x, g, g, 4)
+    with pytest.raises(ValueError):
+        resconv.gn_silu_conv3x3(x, g, g, 4, 1e-5,
+                                torch.zeros(16, 36, 3, 3, device=dev), g[:16])
+    x = torch.zeros(2, 4, 4, 32, device=dev)                # fp32: K8 takes bf16
+    g = torch.ones(32, device=dev)
+    with pytest.raises(ValueError):
+        resconv.gn_silu_conv3x3(x, g, g, 8, 1e-5,
+                                torch.zeros(12, 32, 3, 3, device=dev), g[:12])
+    with pytest.raises(ValueError):                          # Co % 8 != 0
+        resconv.gn_silu_conv3x3(x.bfloat16(), g, g, 8, 1e-5,
+                                torch.zeros(12, 32, 3, 3, device=dev), g[:12])
+
+
+@pytest.mark.cuda
+def test_k7_k8_backward_launch_forward_kernels(dev):
+    """LayerNormFn / GroupNormFn / GnSiluConv3x3Fn run the kernel forward and
+    differentiate the plain version; gradients match autograd through it."""
+    x = torch.randn(2, 6, 6, 64, device=dev).requires_grad_(True)
+    g = (1 + 0.1 * torch.randn(64, device=dev)).requires_grad_(True)
+    b = (0.1 * torch.randn(64, device=dev)).requires_grad_(True)
+    for fn, ref, kernel in ((norms.layer_norm, norms.layer_norm_ref, norms.LN_KERNEL),
+                            (lambda *a: norms.group_norm(*a, 8),
+                             lambda *a: norms.group_norm_ref(*a, 8), norms.GN_KERNEL)):
+        n0 = kernel.launches
+        got = torch.autograd.grad(fn(x, g, b).sum(), (x, g, b))
+        assert kernel.launches == n0 + 1
+        want = torch.autograd.grad(ref(x, g, b).sum(), (x, g, b))
+        assert max(_rel(p, q) for p, q in zip(got, want)) < 1e-5
+    xb = x.detach().bfloat16().requires_grad_(True)
+    w = (0.05 * torch.randn(32, 64, 3, 3, device=dev)).bfloat16().requires_grad_(True)
+    cb = torch.zeros(32, device=dev, requires_grad=True)
+    n8 = resconv.KERNEL.launches
+    ins = (xb, g, b, w, cb)
+    got = torch.autograd.grad(
+        resconv.gn_silu_conv3x3(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
+    assert resconv.KERNEL.launches == n8 + 1
+    want = torch.autograd.grad(
+        resconv.gn_silu_conv3x3_ref(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
+    assert max(_rel(p, q) for p, q in zip(got, want)) < 1e-5

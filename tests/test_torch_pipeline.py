@@ -180,3 +180,51 @@ def test_weight_bridge_round_trip(pipes):
         for path, leaf in want.items():
             np.testing.assert_array_equal(got[path], np.asarray(leaf),
                                           err_msg=f"{name}/{path}")
+
+
+def test_generate_and_decode_mode2_fused_configuration(pipes, monkeypatch):
+    """ACTALKER_NORM=fused and ACTALKER_RESCONV=pallas on both sides: the
+    UNet, the VAE's encode and decode and the id head take K7 / K8's plain
+    versions here, the JAX package its XLA twins, traced afresh (a new JAX
+    pipeline, so no trace made under the default switches is reused).
+
+    The port's K7 / K8 call sites are counted over the clip: the count must
+    be what ``chip_smoke.py`` phase 5b derives from the model (per UNet
+    call, two VAE encodes, per decode chunk, the heads run once).
+
+    Latents at the file's tolerance (guidance 7.5 over two steps: the
+    default configuration reads 2.0e-4 of a 1.27 maximum here, this one
+    1.2e-4); the decoded frames at rtol=1e-4 / atol=1e-5."""
+    import chip_smoke
+    from actalker_tpu_torch.models import common, resnet
+    from tests.test_torch_resconv import switches
+
+    jpipe, tpipe, params = pipes
+    calls = dict.fromkeys(chip_smoke.FUSED_KERNELS, 0)
+    for mod, name, kinds in ((common, "layer_norm", ("layer_norm",)),
+                             (common, "group_norm", ("group_norm",)),
+                             (resnet, "gn_silu_conv3x3",
+                              ("gn_silu_conv3x3", "group_norm"))):
+        def counted(*a, _fn=getattr(mod, name), _kinds=kinds, **kw):
+            for k in _kinds:
+                calls[k] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    unet_calls = []
+    hook = tpipe.m.unet.register_forward_pre_hook(lambda *_: unet_calls.append(1))
+    try:
+        with switches("fused", "pallas"):
+            fresh = JPipeline(jpipe.m, params, dtype=jnp.float32)
+            lat_j, lat_t = _run_both(fresh, tpipe, gate=(1, 1))
+            _rel_close(lat_t, lat_j)
+            frames_j = fresh.decode_latents(lat_j, decode_chunk_size=2)
+            frames_t = tpipe.decode_latents(torch.tensor(np.asarray(lat_j)),
+                                            decode_chunk_size=2)
+    finally:
+        hook.remove()
+    m, fl = tpipe.m, chip_smoke.fused_launches
+    parts = ((len(unet_calls), fl(m.unet)), (2, fl(m.vae.encoder)),
+             (-(-NF // 2), fl(m.vae.decoder)), (1, fl(m.id_proj, m.pose_guider)))
+    assert calls == {k: sum(n * per[k] for n, per in parts) for k in calls}
+    np.testing.assert_allclose(frames_t, np.asarray(frames_j), rtol=1e-4,
+                               atol=1e-5)

@@ -91,3 +91,56 @@ def test_adapter_modules_load_in_attn_processor_order(setup):
     out = _port_forward(unet, inputs)
     assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
 
+
+
+# ------------------------------------ the fused-norm configuration (K7, K8)
+
+def _jax_forward(inputs, params):
+    """The JAX UNet applied afresh (traced under the switches as they are
+    now, never through an earlier trace)."""
+    jcfg = dataclasses.replace(JConfig().micro(), block_out_channels=(64, 64))
+    jcond = JCond(jnp.asarray(inputs["id"]), jnp.asarray(inputs["audio"]),
+                  jnp.asarray(inputs["vasa"]), jnp.asarray(inputs["mask"]),
+                  jnp.ones((1, 1, 64, 64)))
+    return np.asarray(JUNet(jcfg).apply(
+        params, jnp.asarray(inputs["sample"]), 0.5, jcond,
+        jnp.asarray(inputs["tids"]), jnp.asarray(inputs["pose"])))
+
+
+def test_unet_forward_matches_jax_fused_configuration(setup, monkeypatch):
+    """ACTALKER_NORM=fused and ACTALKER_RESCONV=pallas on both sides, at
+    rtol=1e-4 / atol=1e-5 (this micro UNet reads 5e-7 in either
+    configuration, a twentieth of that). Counting the port's K7 / K8 call sites in the
+    same forward checks ``chip_smoke.fused_launches``, which derives the
+    card's launch counts from the model: one K7-LN per LayerNormF32, one
+    K7-GN per GroupNorm32 (the resnet pairs' statistics included), one K8
+    per GroupNorm / SiLU / conv pair of a ResnetBlock2D."""
+    import chip_smoke
+    from actalker_tpu_torch.models import common, resnet
+    from tests.test_torch_resconv import switches
+
+    inputs, params, _, tcfg = setup
+    unet = UNetSpatioTemporalCondition(tcfg)
+    unet_sd, adapter_sd = TW.unet_state_dicts_from_jax(params, tcfg)
+    TW.load_unet(unet, unet_sd, adapter_sd)
+    calls = {"layer_norm": 0, "group_norm": 0, "gn_silu_conv3x3": 0}
+
+    def counting(name, fn, also=None):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            if also:
+                calls[also] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(common, "layer_norm", counting("layer_norm", common.layer_norm))
+    monkeypatch.setattr(common, "group_norm", counting("group_norm", common.group_norm))
+    monkeypatch.setattr(resnet, "gn_silu_conv3x3", counting(
+        "gn_silu_conv3x3", resnet.gn_silu_conv3x3, also="group_norm"))
+    with switches("fused", "pallas"):
+        ref = _jax_forward(inputs, params)
+        out = _port_forward(unet, inputs)
+    assert out.shape == ref.shape == (B, F, HW, HW, 4)
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+    assert calls == chip_smoke.fused_launches(unet)
+    assert all(calls.values())
