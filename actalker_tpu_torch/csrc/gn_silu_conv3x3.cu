@@ -26,9 +26,19 @@
 // x = W - 1 never reads the neighbouring row. The activation is recomputed
 // per tap and per Co tile (Co / 64 times); keeping it in shared memory
 // across a whole Co row, and wgmma / TMA, are later work.
+//
+// Stage knock-outs (template parameter V), the port of the TPU bisect tool
+// tools/micro_resconv_bisect.py (`kernel` :30-65, launched at :79), each
+// with its own C entry; kFull is K8:
+//   kNoShift  only the dx = 0 taps are gathered (the others are zeros),
+//   kNoAffine SiLU of x without the GroupNorm affine (a, b not read),
+//   kNoSilu   the affine without SiLU,
+//   kMmOnly   the gather writes zeros and reads no input (y = cb).
 #include "common.cuh"
 
 namespace {
+
+enum Variant { kFull, kNoShift, kNoAffine, kNoSilu, kMmOnly };
 
 constexpr int kBM = 128, kBN = 64, kBK = 32;
 constexpr int kPad = kBK + 8;   // shared row stride in bf16 (conflict-free frags)
@@ -38,6 +48,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 gn_silu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ ga,
@@ -79,19 +90,22 @@ gn_silu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = 0; i < 2; ++i) {
       const int k = k0 + ((tid + i * kThreads) % 4) * 8;
       inside[i] = false;
-      if (rimg[i] >= 0 && k < K) {
+      if (V != kMmOnly && rimg[i] >= 0 && k < K) {
         const int tap = k / C, c = k - tap * C;
         const int yy = ry[i] + tap / 3 - 1, xx = rx[i] + tap % 3 - 1;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W &&
+            (V != kNoShift || tap % 3 == 1)) {
           inside[i] = true;
           ra[i] = *reinterpret_cast<const uint4*>(
               x + (((size_t)rimg[i] * H + yy) * W + xx) * C + c);
-          const float* ap = ga + (size_t)rimg[i] * C + c;
-          const float* bp = gb + (size_t)rimg[i] * C + c;
-          pa[i][0] = *reinterpret_cast<const float4*>(ap);
-          pa[i][1] = *reinterpret_cast<const float4*>(ap + 4);
-          pb[i][0] = *reinterpret_cast<const float4*>(bp);
-          pb[i][1] = *reinterpret_cast<const float4*>(bp + 4);
+          if (V != kNoAffine) {
+            const float* ap = ga + (size_t)rimg[i] * C + c;
+            const float* bp = gb + (size_t)rimg[i] * C + c;
+            pa[i][0] = *reinterpret_cast<const float4*>(ap);
+            pa[i][1] = *reinterpret_cast<const float4*>(ap + 4);
+            pb[i][0] = *reinterpret_cast<const float4*>(bp);
+            pb[i][1] = *reinterpret_cast<const float4*>(bp + 4);
+          }
         }
       }
     }
@@ -114,8 +128,8 @@ gn_silu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                             pb[i][1].x, pb[i][1].y, pb[i][1].z, pb[i][1].w};
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float y = f[j] * a[j] + b[j];
-          f[j] = __fdividef(y, 1.f + __expf(-y));
+          const float y = V == kNoAffine ? f[j] : f[j] * a[j] + b[j];
+          f[j] = V == kNoSilu ? y : __fdividef(y, 1.f + __expf(-y));
         }
         v = akt::pack_vec(f);
       }
@@ -182,19 +196,33 @@ gn_silu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-}  // namespace
-
-// y (N, H, W, Co) = conv3x3(silu(x * a + b)) + cb; C % 8 == 0, Co % 8 == 0
-extern "C" int gn_silu_conv3x3_bf16(const void* x, const void* a, const void* b,
-                                    const void* wt, const void* cb, void* y,
-                                    int N, int H, int W, int C, int Co,
-                                    void* stream) {
+template <int V>
+int launch(const void* x, const void* a, const void* b, const void* wt,
+           const void* cb, void* y, int N, int H, int W, int C, int Co,
+           void* stream) {
   const long long m_tiles = ((long long)N * H * W + kBM - 1) / kBM;
   const long long blocks = m_tiles * ((Co + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gn_silu_conv3x3_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  gn_silu_conv3x3_kernel<V><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)a, (const float*)b,
       (const __nv_bfloat16*)wt, (const float*)cb, (__nv_bfloat16*)y, N, H, W, C,
       Co);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// y (N, H, W, Co) = conv3x3(silu(x * a + b)) + cb; C % 8 == 0, Co % 8 == 0;
+// the other entries are the stage knock-outs above, same arguments
+#define GN_SILU_CONV3X3_ENTRY(NAME, V)                                        \
+  extern "C" int NAME(const void* x, const void* a, const void* b,            \
+                      const void* wt, const void* cb, void* y, int N, int H,  \
+                      int W, int C, int Co, void* stream) {                   \
+    return launch<V>(x, a, b, wt, cb, y, N, H, W, C, Co, stream);             \
+  }
+
+GN_SILU_CONV3X3_ENTRY(gn_silu_conv3x3_bf16, kFull)
+GN_SILU_CONV3X3_ENTRY(gn_silu_conv3x3_noshift_bf16, kNoShift)
+GN_SILU_CONV3X3_ENTRY(gn_silu_conv3x3_noaffine_bf16, kNoAffine)
+GN_SILU_CONV3X3_ENTRY(gn_silu_conv3x3_nosilu_bf16, kNoSilu)
+GN_SILU_CONV3X3_ENTRY(gn_silu_conv3x3_mmonly_bf16, kMmOnly)

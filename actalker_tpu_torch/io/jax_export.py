@@ -440,6 +440,28 @@ def export_pose_guider(params: Mapping) -> Dict[str, np.ndarray]:
     return export_state_dict(convert_pose_guider, params, n_blocks=n_blocks)
 
 
+def export_lineage(params: Mapping) -> Dict[str, np.ndarray]:
+    """SS2D-lineage params (``models/ssm_spatial.py``, ``SS2DUnit``) -> the
+    port module's state dict. The port's module names follow the JAX tree,
+    so each leaf maps mechanically: a dense kernel (in, out) -> ``weight``
+    (out, in); a conv kernel (kh, kw, i, o) -> ``weight`` (o, i, kh, kw);
+    a LayerNorm ``scale`` -> ``weight``; anything else keeps its name."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in _flatten_params(params.get("params", params)).items():
+        *mods, leaf = path.split("/")
+        if leaf == "kernel":
+            leaf, v = "weight", _KINDS["linear" if v.ndim == 2 else "conv2"][1](v)
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join(mods + [leaf])] = v
+    return sd
+
+
+# one name per module of the lineage, as the other exporters have
+export_ss2d_unit = export_ss2d_spatial = export_lineage
+export_ss2d_cond_v5 = export_ss2d_cond_v6 = export_ss2d_cond_v9 = export_lineage
+export_mamba_upnet = export_lineage
+
 
 def convert_vae(sd: Mapping[str, np.ndarray], block_out_channels=(128, 256, 512, 512),
                 layers_per_block=2) -> Dict:

@@ -53,11 +53,13 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """2-D conv on NHWC input, weights in torch (O, I, kh, kw) layout."""
+    """2-D conv on NHWC input, weights in torch (O, I / groups, kh, kw)
+    layout."""
 
     def forward(self, x):
         y = F.conv2d(x.permute(0, 3, 1, 2), _cast(self.weight, x.dtype),
-                     _cast(self.bias, x.dtype), self.stride, self.padding)
+                     _cast(self.bias, x.dtype), self.stride, self.padding,
+                     self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

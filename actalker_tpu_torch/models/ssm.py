@@ -1,20 +1,25 @@
-"""Selective-state-space (Mamba) control block SS2DCondV10, masked-dense.
+"""Selective-state-space (Mamba) control blocks: the bidirectional scan unit
+``SS2DUnit`` and the masked-dense control block ``SS2DCondV10``.
 
-Twin of ``actalker_tpu/models/ssm.py``: ``SS2DUnit`` (parameters and
-``weights()``) and ``SS2DCondV10`` on its masked-dense path. Per control
-branch (audio / expression): project the tokens with ``in_proj``, append the
-projected identity and control tokens, scan both directions, keep the scan
-output at the tokens the region mask selects and the projection elsewhere,
-then sum the branches -> LayerNorm -> ``out_proj``.
+Twin of ``actalker_tpu/models/ssm.py``. ``SS2DUnit`` scans a (B, L, d_inner)
+sequence in ``num_direction`` directions (even ones left to right, odd ones
+right to left) with per-direction input / dt projections and S4D-real state
+matrices: it arranges the tokens once (L-major) and runs one K5 call per
+direction (``ops.selective_scan.ssm_scan_arranged``; K6 in its gradient).
+The SS2D lineage (``models/ssm_spatial.py``) is built from it.
 
-Tokens the mask does not select, and rows past a branch's tail, are made
-exact identity steps of the recurrence (their delta projection gets -1e9,
-so softplus(delta) == 0): the state seen by selected tokens is exactly the
-one the reference's gather/scatter formulation computes. Every width runs
-all its (branch, direction) scans as one call of the grouped op, K1
-(``ops.selective_scan.ssm_scan_grouped``); its gradient runs the adjoint
-kernel K6 once per group. The static-capacity gather of the JAX package is
-a speed path with the same output and is not ported.
+``SS2DCondV10``, per control branch (audio / expression): project the
+tokens with ``in_proj``, append the projected identity and control tokens,
+scan both directions, keep the scan output at the tokens the region mask
+selects and the projection elsewhere, then sum the branches -> LayerNorm ->
+``out_proj``. Tokens the mask does not select, and rows past a branch's
+tail, are made exact identity steps of the recurrence (their delta
+projection gets -1e9, so softplus(delta) == 0): the state seen by selected
+tokens is exactly the one the reference's gather/scatter formulation
+computes. Every width runs all its (branch, direction) scans as one call of
+the grouped op, K1 (``ops.selective_scan.ssm_scan_grouped``); its gradient
+runs the adjoint kernel K6 once per group. The static-capacity gather of the
+JAX package is a speed path with the same output and is not ported.
 """
 from __future__ import annotations
 
@@ -28,18 +33,27 @@ from actalker_tpu_torch.models.attention_blocks import (
     downsample_ip_mask, expand_mask_rows)
 from actalker_tpu_torch.models.common import LayerNormF32, Linear
 from actalker_tpu_torch.ops.selective_scan import (
-    LANES, MASK_LANE, ssm_scan_grouped)
+    LANES, MASK_LANE, ssm_scan, ssm_scan_arranged, ssm_scan_grouped)
+
+
+def scan_one_direction(u, delta, A, Bm, Cm, D, bias, reverse: bool, dtype
+                       ) -> torch.Tensor:
+    """(B, L, d) scan in one direction through the arranged op, cast to
+    ``dtype`` (twin of ``_scan_one_direction`` on its Pallas path)."""
+    return ssm_scan(u, delta, A, Bm, Cm, D, bias, reverse=reverse).to(dtype)
 
 
 class SS2DUnit(nn.Module):
-    """Parameters of one bidirectional selective scan (two directions) with
-    the reference's names and shapes. The scan itself runs inside
-    ``SS2DCondV10`` through the grouped op."""
+    """Selective scan over (B, L, d_inner) sequences in ``num_direction``
+    directions, with the reference's parameter names and shapes
+    (``SS2D_Unit``, ``mamba_layer.py:1394-1553``)."""
 
-    def __init__(self, d_inner: int, d_state: int, dt_rank: int):
+    def __init__(self, d_inner: int, d_state: int = 16, dt_rank=None,
+                 num_direction: int = 2):
         super().__init__()
-        k, d, n = 2, d_inner, d_state
-        self.rank = dt_rank
+        k, d, n = num_direction, d_inner, d_state
+        self.d_inner, self.d_state, self.num_direction = d, n, k
+        self.rank = dt_rank or math.ceil(d_inner / 2 / 16)
         self.x_proj_weight = nn.Parameter(torch.zeros(k, self.rank + 2 * n, d))
         self.dt_projs_weight = nn.Parameter(torch.zeros(k, d, self.rank))
         self.dt_projs_bias = nn.Parameter(torch.zeros(k, d))
@@ -50,6 +64,40 @@ class SS2DUnit(nn.Module):
     def weights(self):
         return (self.x_proj_weight, self.dt_projs_weight, self.dt_projs_bias,
                 self.A_logs, self.Ds)
+
+    def scan_arranged(self, x_a, tm_a=None):
+        """Scan every direction of an arranged buffer and sum them.
+
+        x_a: (Lp, Bp, Dp), Dp >= d_inner, zero in channels past d_inner;
+        tm_a: (Lp, Bp) bool or None; False rows (pads or deselected tokens)
+        get delta -1e9, exact identity steps. The projections run in the
+        arranged layout with zero-padded weights, so pad channels are
+        transparent. Returns (Lp, Bp, Dp) in x_a's dtype."""
+        dp = x_a.shape[2]
+        d, n, rank = self.d_inner, self.d_state, self.rank
+        y = None
+        for k in range(self.num_direction):
+            x_dbl = F.linear(x_a, F.pad(self.x_proj_weight[k].to(x_a.dtype),
+                                        (0, dp - d)))
+            dtw = F.pad(self.dt_projs_weight[k].to(x_a.dtype), (0, 0, 0, dp - d))
+            dt_a = F.linear(x_dbl[..., :rank], dtw)
+            if tm_a is not None:
+                dt_a = dt_a.masked_fill(~tm_a[..., None], -1e9)
+            bc_a = F.pad(x_dbl[..., rank:rank + 2 * n], (0, LANES - 2 * n))
+            A = -torch.exp(self.A_logs[k * d:(k + 1) * d].float())
+            yk = ssm_scan_arranged(x_a, dt_a, bc_a, A, self.Ds[k * d:(k + 1) * d],
+                                   self.dt_projs_bias[k], reverse=k % 2 == 1)
+            y = yk if y is None else y + yk
+        return y
+
+    def forward(self, x, transparent_mask=None):
+        """x (B, L, d_inner); transparent_mask (B, L) bool or None, False ->
+        the token is an identity step of the scan. The tokens are arranged
+        once, without padding (K5 takes any (L, B, D)); returns (B, L,
+        d_inner) in x's dtype."""
+        x_a = x.transpose(0, 1).contiguous()
+        tm_a = None if transparent_mask is None else transparent_mask.transpose(0, 1)
+        return self.scan_arranged(x_a, tm_a).transpose(0, 1)
 
 
 class SS2DCondV10(nn.Module):

@@ -25,10 +25,14 @@ from actalker_tpu_torch.ops._build import (
     Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
 from actalker_tpu_torch.ops.norms import gn_affine, group_norm_affine
 
-__all__ = ["KERNEL", "GnSiluConv3x3Fn", "conv_launch", "conv_operands",
-           "gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_ref"]
+__all__ = ["KERNEL", "VARIANTS", "GnSiluConv3x3Fn", "conv_launch",
+           "conv_operands", "gn_affine", "gn_silu_conv3x3",
+           "gn_silu_conv3x3_ref"]
 
 KERNEL = Kernel("gn_silu_conv3x3", replaces="actalker_tpu/ops/resconv.py:43")
+# K8 and its stage knock-outs, one C entry each (the TPU bisect tool's
+# variants, tools/micro_resconv_bisect.py:30)
+VARIANTS = ("full", "noshift", "noaffine", "nosilu", "mmonly")
 
 _BF16 = (torch.bfloat16,)
 _F32 = (torch.float32,)
@@ -63,17 +67,21 @@ def conv_operands(x, gamma, beta, groups, eps, w, cb):
     return x, a, b, wt, cb.float().contiguous()
 
 
-def conv_launch(x, a, b, wt, cb) -> torch.Tensor:
-    """The K8 launch on ``conv_operands``' operands."""
+def conv_launch(x, a, b, wt, cb, variant: str = "full") -> torch.Tensor:
+    """The K8 launch on ``conv_operands``' operands; ``variant`` picks one
+    of K8's stage knock-outs (``VARIANTS``, for the bisect tool
+    ``tools/resconv_bisect.py``), "full" is K8 itself."""
     n, h, wd, c = x.shape
     co = wt.shape[0]
+    check(variant in VARIANTS, f"K8: variant {variant!r} not in {VARIANTS}")
     check_cuda_tensors("K8", (x, a, b, wt, cb),
                        {"x": _BF16, "a": _F32, "b": _F32, "w": _BF16,
                         "cb": _F32})
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    KERNEL.launch("gn_silu_conv3x3_bf16", "ppppppiiiiip", ptr(x), ptr(a),
-                  ptr(b), ptr(wt), ptr(cb), ptr(y), n, h, wd, c, co,
-                  stream_of(x))
+    fn = ("gn_silu_conv3x3_bf16" if variant == "full"
+          else f"gn_silu_conv3x3_{variant}_bf16")
+    KERNEL.launch(fn, "ppppppiiiiip", ptr(x), ptr(a), ptr(b), ptr(wt), ptr(cb),
+                  ptr(y), n, h, wd, c, co, stream_of(x))
     return y
 
 

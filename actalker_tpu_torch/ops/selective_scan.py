@@ -1,8 +1,10 @@
 """Selective scan (Mamba S6 recurrence): plain PyTorch twins, the grouped
-CUDA kernel K1 (forward) and the adjoint kernel K6 (backward).
+CUDA kernel K1 (forward), the single-direction kernel K5 (forward) and the
+adjoint kernel K6 (backward).
 
 Twin of ``actalker_tpu/ops/selective_scan.py`` (the plain ``seq`` /
-``blocked`` scans) and of ``ssm_scan_grouped`` in
+``blocked`` scans) and of ``ssm_scan_grouped``, ``ssm_scan_arranged``,
+``arrange_ssm_inputs`` and ``ssm_scan`` in
 ``actalker_tpu/ops/selective_scan_pallas.py``:
 
     delta = softplus(delta + delta_bias)
@@ -11,14 +13,19 @@ Twin of ``actalker_tpu/ops/selective_scan.py`` (the plain ``seq`` /
 
 All accumulation is float32 whatever the input dtype. Layouts follow the JAX
 package: ``selective_scan`` takes (B, L, D) sequences with (B, L, G, N)
-B/C; the grouped op takes the arranged (L, B, .) buffers of one SS2D block.
+B/C; the grouped op takes the arranged (L, B, .) buffers of one SS2D block
+(SS2DCondV10); ``ssm_scan_arranged`` one direction on arranged (L, B, D)
+buffers with B|C packed in 128 lanes (the SS2D lineage), and ``ssm_scan``
+the same on (B, L, D) sequences.
 
 Gradients: ``ssm_scan_grouped`` runs ``SsmScanGroupedFn`` when autograd
 needs it. Its backward follows ``_grouped_bwd`` of the JAX package: per
 group the raw delta projection in a plain matmul, the adjoint of the
 arranged scan (K6, ``ssm_scan_arranged_grad``; twin of
 ``_arranged_grad_tpu``), then the delta cotangent pushed back through the
-slab matmul.
+slab matmul. ``ssm_scan_arranged`` runs ``SsmScanArrangedFn``: K5 forward,
+K6 backward, as the JAX package's ``custom_vjp`` pairs ``_arranged_pallas``
+with ``_arranged_grad_tpu``.
 """
 from __future__ import annotations
 
@@ -40,6 +47,10 @@ KERNEL = Kernel(
 BWD_KERNEL = Kernel(
     "ssm_scan_bwd",
     replaces="actalker_tpu/ops/selective_scan_pallas.py:154")
+ARRANGED_KERNEL = Kernel(
+    "ssm_scan",
+    replaces="actalker_tpu/ops/selective_scan_pallas.py:75")
+_BT = 8           # batch rows per tile of the arranged layout
 
 
 def _prep(u, delta, A, B, C, D, delta_bias, delta_softplus):
@@ -116,6 +127,28 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
     return (h * C32).sum(-1) + skip
 
 
+def _scan_serial(u, delta, A, Bm, Cm, Dv, reverse: bool, chunk: int = 64
+                 ) -> torch.Tensor:
+    """fp32 scan of arranged (L, B, D) buffers, sequential in L (right to
+    left when ``reverse``): delta already softplus'd; A (D, N); Bm / Cm
+    (L, B, N); Dv (D,). exp(delta A) and delta B u are formed for ``chunk``
+    tokens at once, so no (L, B, D, N) tensor exists."""
+    lp, bp, d = u.shape
+    order = list(range(lp - 1, -1, -1) if reverse else range(lp))
+    y = torch.empty(lp, bp, d, dtype=torch.float32, device=u.device)
+    h = torch.zeros(bp, d, A.shape[-1], dtype=torch.float32, device=u.device)
+    for c0 in range(0, lp, chunk):
+        ts = order[c0:c0 + chunk]
+        dA = torch.exp(delta[ts][..., None] * A)                  # (T, B, D, N)
+        dBu = (delta[ts] * u[ts])[..., None] * Bm[ts][:, :, None]
+        hs = []
+        for i in range(len(ts)):
+            h = dA[i] * h + dBu[i]
+            hs.append(h)
+        y[ts] = (torch.stack(hs) * Cm[ts][:, :, None]).sum(-1) + Dv * u[ts]
+    return y
+
+
 def ssm_scan_grouped_ref(u_g, slab_g, dtw_g, A_g, D_g, bias_g, rank: int
                          ) -> torch.Tensor:
     """Plain PyTorch version of K1 (twin of ``_grouped_xla``): for each group,
@@ -123,33 +156,17 @@ def ssm_scan_grouped_ref(u_g, slab_g, dtw_g, A_g, D_g, bias_g, rank: int
     bias + softplus, B/C at lanes [rank, rank + 2N), odd groups right to
     left. Sequential in L with fp32 state; returns (L, B, G * Dp) in u's
     dtype."""
-    lp, bp, _ = u_g.shape
     g = dtw_g.shape[0]
     dp = u_g.shape[2] // (g // 2)
     n = A_g.shape[-1]
-    chunk = 64          # tokens whose exp(delta A) are formed at once
     outs = []
     for gi in range(g):
         u = u_g[:, :, (gi // 2) * dp:(gi // 2 + 1) * dp].float()
         slab = slab_g[:, :, gi * LANES:(gi + 1) * LANES].float()
         delta = F.softplus(slab @ dtw_g[gi].float() + bias_g[gi].float())
-        Bm = slab[:, :, rank:rank + n]
-        Cm = slab[:, :, rank + n:rank + 2 * n]
-        A = A_g[gi].float()
-        Dv = D_g[gi].float()
-        order = list(range(lp - 1, -1, -1) if gi % 2 else range(lp))
-        y = torch.empty(lp, bp, dp, dtype=torch.float32, device=u.device)
-        h = torch.zeros(bp, dp, n, dtype=torch.float32, device=u.device)
-        for c0 in range(0, lp, chunk):
-            ts = order[c0:c0 + chunk]
-            dA = torch.exp(delta[ts][..., None] * A)                  # (T, B, D, N)
-            dBu = (delta[ts] * u[ts])[..., None] * Bm[ts][:, :, None]
-            hs = []
-            for i in range(len(ts)):
-                h = dA[i] * h + dBu[i]
-                hs.append(h)
-            hs = torch.stack(hs)
-            y[ts] = (hs * Cm[ts][:, :, None]).sum(-1) + Dv * u[ts]
+        y = _scan_serial(u, delta, A_g[gi].float(), slab[:, :, rank:rank + n],
+                         slab[:, :, rank + n:rank + 2 * n], D_g[gi].float(),
+                         reverse=bool(gi % 2))
         outs.append(y.to(u_g.dtype))
     return torch.cat(outs, dim=-1)
 
@@ -373,3 +390,144 @@ def ssm_scan_grouped(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
     if needs_grad(*args):
         return SsmScanGroupedFn.apply(*args, rank)
     return _grouped_fwd(*args, rank)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pick_lc(lc: int, l: int, dp: int, np_: int, itemsize: int) -> int:
+    """The L chunk of the JAX package's arranged layout (twin of
+    ``_pick_lc``); ``arrange_ssm_inputs`` pads L to a multiple of it."""
+    budget = 8 * 2**20
+    per_row = _BT * (3 * dp + np_) * itemsize * 2
+    unroll = 4 if dp <= 1280 else 2
+    picked = max(unroll, min(lc, max(8, budget // per_row), _round_up(l, 8)))
+    return max(unroll, picked - picked % unroll)
+
+
+def ssm_scan_arranged_ref(u_a, dt_a, bc_a, A, D, bias, reverse: bool
+                          ) -> torch.Tensor:
+    """Plain version of K5 (twin of ``_arranged_xla``).
+
+    u_a, dt_a (L, B, Dp) in the model dtype, dt_a the raw delta (bias and
+    softplus are applied here); bc_a (L, B, NB >= 2N) with B in lanes
+    [0, N) and C in [N, 2N); A (D, N); D, bias (D,), D <= Dp. fp32 state,
+    right to left when ``reverse``. Returns (L, B, Dp) in u's dtype, zero in
+    channels [D, Dp)."""
+    d, n = A.shape
+    delta = F.softplus(dt_a[:, :, :d].float() + bias.float())
+    y = _scan_serial(u_a[:, :, :d].float(), delta, A.float(),
+                     bc_a[..., :n].float(), bc_a[..., n:2 * n].float(),
+                     D.float(), reverse)
+    return F.pad(y, (0, u_a.shape[2] - d)).to(u_a.dtype)
+
+
+def _arranged_fwd(u_a, dt_a, bc_a, A, D, bias, reverse: bool) -> torch.Tensor:
+    """K5 forward, no autograd; shapes as ``ssm_scan_arranged_ref``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not u_a.is_cuda:
+        return ssm_scan_arranged_ref(u_a, dt_a, bc_a, A, D, bias, reverse)
+    lp, bp, dp = u_a.shape
+    d, n = A.shape
+    nb = bc_a.shape[-1]
+    check(n == D_STATE, f"K5: d_state {n} must be {D_STATE}")
+    check(d <= dp and tuple(D.shape) == (d,) and tuple(bias.shape) == (d,),
+          f"K5: A {tuple(A.shape)}, D / bias (D,) with D <= Dp = {dp}")
+    check(tuple(dt_a.shape) == (lp, bp, dp), "K5: dt must match u")
+    check(tuple(bc_a.shape) == (lp, bp, nb) and nb >= 2 * n,
+          f"K5: bc {tuple(bc_a.shape)} must be (L, B, NB >= 2N)")
+    # pad channels get A = D = bias = 0 (as _arranged_pallas pads them)
+    a_p = F.pad(A.float(), (0, 0, 0, dp - d)).contiguous()
+    d_p, b_p = (F.pad(t.float(), (0, dp - d)).contiguous() for t in (D, bias))
+    act = (torch.bfloat16, torch.float32)
+    f32 = (torch.float32,)
+    check_cuda_tensors("K5", (u_a, dt_a, bc_a, a_p, d_p, b_p),
+                       {"u": act, "dt": act, "bc": act, "A": f32, "D": f32,
+                        "bias": f32})
+    check(dt_a.dtype == u_a.dtype and bc_a.dtype == u_a.dtype,
+          "K5: dt and bc dtype must match u")
+    y = torch.empty((lp, bp, dp), dtype=u_a.dtype, device=u_a.device)
+    fn = "ssm_scan_bf16" if u_a.dtype == torch.bfloat16 else "ssm_scan_f32"
+    ARRANGED_KERNEL.launch(fn, "pppppppiiiiip", ptr(u_a), ptr(dt_a), ptr(bc_a),
+                           ptr(a_p), ptr(d_p), ptr(b_p), ptr(y), lp, bp, dp, nb,
+                           int(reverse), stream_of(u_a))
+    return y
+
+
+class SsmScanArrangedFn(torch.autograd.Function):
+    """K5 forward; backward the arranged adjoint ``ssm_scan_arranged_grad``
+    (K6 on the card, the plain adjoint on the CPU), as ``_arranged_bwd``
+    pairs them. dt reaches K6 as fp32; A / D / bias are padded to Dp and
+    the pad channels' cotangents zeroed, as ``_arranged_grad_tpu`` does."""
+
+    @staticmethod
+    def forward(ctx, u_a, dt_a, bc_a, A, D, bias, reverse):
+        ctx.reverse = reverse
+        ctx.save_for_backward(u_a, dt_a, bc_a, A, D, bias)
+        return _arranged_fwd(u_a, dt_a, bc_a, A, D, bias, reverse)
+
+    @staticmethod
+    def backward(ctx, gy):
+        u_a, dt_a, bc_a, A, D, bias = ctx.saved_tensors
+        d, dp = A.shape[0], u_a.shape[2]
+        gy = F.pad(gy[:, :, :d].to(u_a.dtype), (0, dp - d)).contiguous()
+        du, ddt, dbc, da, dd, db = ssm_scan_arranged_grad(
+            u_a.contiguous(), dt_a.float().contiguous(), bc_a.contiguous(),
+            F.pad(A.float(), (0, 0, 0, dp - d)).contiguous(),
+            *(F.pad(t.float(), (0, dp - d)).contiguous() for t in (D, bias)),
+            gy, ctx.reverse)
+        return (du, ddt.to(dt_a.dtype), dbc, da[:d].to(A.dtype),
+                dd[:d].to(D.dtype), db[:d].to(bias.dtype), None)
+
+
+def ssm_scan_arranged(u_a: torch.Tensor,   # (L, B, Dp) arranged, zero-padded
+                      dt_a: torch.Tensor,  # (L, B, Dp) raw delta; -1e9 rows inactive
+                      bc_a: torch.Tensor,  # (L, B, 128) packed B | C lanes
+                      A: torch.Tensor,     # (D, N)
+                      D=None, delta_bias=None,
+                      reverse: bool = False) -> torch.Tensor:
+    """One direction of the S6 scan on arranged buffers (twin of
+    ``ssm_scan_arranged``); returns (L, B, Dp) in u's dtype. Under
+    ``no_grad`` exactly one K5 launch; differentiable through
+    ``SsmScanArrangedFn`` (K5 forward, K6 backward) when autograd needs it."""
+    d = A.shape[0]
+    if D is None:
+        D = torch.zeros(d, dtype=torch.float32, device=A.device)
+    if delta_bias is None:
+        delta_bias = torch.zeros(d, dtype=torch.float32, device=A.device)
+    args = (u_a, dt_a, bc_a, A, D, delta_bias)
+    if needs_grad(*args):
+        return SsmScanArrangedFn.apply(*args, reverse)
+    return _arranged_fwd(*args, reverse)
+
+
+def arrange_ssm_inputs(u, delta, Bmat, Cmat, lc: int = 64):
+    """(B, L, ...) -> padded (L, B, ...) buffers for ``ssm_scan_arranged``
+    (twin of ``arrange_ssm_inputs``): D padded to a multiple of 128, B to a
+    multiple of 8, L to a multiple of the JAX package's chunk. Batch pad
+    rows are harmless garbage lanes; L-pad rows get delta = -30 (softplus
+    ~1e-13: identity steps). B|C is cast to u's dtype."""
+    b, l, d = u.shape
+    n = Bmat.shape[-1]
+    check(2 * n <= LANES, f"d_state {n} too large for packed B|C")
+    dp, bp = _round_up(d, 128), _round_up(b, _BT)
+    lp = _round_up(l, _pick_lc(lc, l, dp, LANES, u.element_size()))
+    u_a = F.pad(u.transpose(0, 1), (0, dp - d, 0, bp - b, 0, lp - l))
+    dt_a = F.pad(delta.transpose(0, 1), (0, dp - d, 0, bp - b))
+    dt_a = F.pad(dt_a, (0, 0, 0, 0, 0, lp - l), value=-30.0)
+    bc = torch.cat([Bmat, Cmat], dim=-1).to(u.dtype)
+    bc_a = F.pad(bc.transpose(0, 1), (0, LANES - 2 * n, 0, bp - b, 0, lp - l))
+    return u_a.contiguous(), dt_a.contiguous(), bc_a.contiguous()
+
+
+def ssm_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
+             reverse: bool = False, lc: int = 64) -> torch.Tensor:
+    """Selective scan of (B, L, D) sequences through the arranged op (twin
+    of ``ssm_scan``): u, delta (B, L, D); A (D, N); Bmat, Cmat (B, L, N).
+    Returns (B, L, D) in u's dtype."""
+    b, l, d = u.shape
+    u_a, dt_a, bc_a = arrange_ssm_inputs(u, delta, Bmat, Cmat, lc=lc)
+    y = ssm_scan_arranged(u_a, dt_a, bc_a, A, D, delta_bias, reverse=reverse)
+    return y[:l, :b, :d].transpose(0, 1)

@@ -35,6 +35,7 @@ import torch
 # (group, name substrings), first match wins: the port's own kernels first
 GROUPS = (
     ("K1 grouped scan", ("ssm_grouped_kernel",)),
+    ("K5 scan", ("ssm_scan_kernel",)),
     ("K6 scan adjoint", ("boundary_kernel", "adjoint_kernel")),
     ("K2 attention", ("mha_fwd_kernel",)),
     ("K2-bwd attention backward", ("dkdv_kernel", "dq_kernel", "row_dot")),

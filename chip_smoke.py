@@ -8,16 +8,19 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 Phases, one line each (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi), torch / CUDA versions; no GPU
      -> exit 1 without a result;
-  2. build: nvcc-compiles the nine hand-written kernels (K1-K4, the scan
-     adjoint K6, the attention backward K2-bwd, LayerNorm K7-LN, GroupNorm
-     K7-GN and the fused GroupNorm + SiLU + 3x3 conv K8) from
-     ``actalker_tpu_torch/csrc`` into ``actalker_tpu_torch/_build``, one
-     nvcc process per source, all started together;
+  2. build: nvcc-compiles the ten hand-written kernels (K1-K4, the
+     single-direction scan K5, the scan adjoint K6, the attention backward
+     K2-bwd, LayerNorm K7-LN, GroupNorm K7-GN and the fused GroupNorm + SiLU
+     + 3x3 conv K8) from ``actalker_tpu_torch/csrc`` into
+     ``actalker_tpu_torch/_build``, one nvcc process per source, all started
+     together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the clip and training paths give it, same inputs, fp32
-     accumulation in the plain version, with CUDA-event times (median), the
-     time of one PyTorch library call computing the same function where
-     there is one, and the data-sheet bound;
+     the shapes the clip, training and lineage paths give it, same inputs,
+     fp32 accumulation in the plain version, with CUDA-event times
+     (median), the time of one PyTorch library call computing the same
+     function where there is one, and the data-sheet bound; then K8's five
+     bisect variants (``tools/resconv_bisect.py``) against their plain
+     versions at a small shape, and timed at (56, 64, 64, 320 -> 320);
   4. UNet: one full-width bf16 forward (UNetConfig(), seeded weights) on a
      small latent through the kernels and through the plain versions;
      4b. the same under the fused-norm configuration (ACTALKER_NORM=fused,
@@ -38,9 +41,15 @@ Phases, one line each (any failure raises and exits non-zero):
      block checkpointing, seeded weights) for 8 micro-steps: finite losses,
      launches per micro-step equal to the counts derived from the model,
      parameters still before the first commit and moved after it, the
-     checkpoint reloads, six reference files exported.
-Then one JSON line with the kernels, the card line, and the last line
-``{"ok": true, "device": {...}}``.
+     checkpoint reloads, six reference files exported;
+  8. lineage: SS2DCondV9 / V5 / V6 at the UNet's res-64 control-block shape
+     (bf16, d_model 320, the clip's 33-token tail, V9 with face-box masks)
+     and MambaUPNet at its published defaults on (8, 8, 8, 512) fp32,
+     seeded with the JAX package's initializers, through K5 and through the
+     plain versions; launch counts derived from the modules; one V9 loss
+     backward through K5 / K6 against the plain path, by parameter group.
+Then a JSON line with the bisect variants, one with the kernels, the card
+line, and the last line ``{"ok": true, "device": {...}}``.
 
 Matrix products in the plain versions run in full fp32 (TF32 off for both
 cuBLAS and cuDNN).
@@ -67,6 +76,7 @@ PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 TOL = {
     # fp32 state in both; the output is rounded to bf16
     "ssm_scan_grouped": 1e-3,
+    "ssm_scan": 1e-3,
     # the kernel rounds the softmax probabilities to bf16 before P @ V
     # (as the TPU kernel does); the plain version keeps them fp32
     "mha": 1e-2,
@@ -95,6 +105,19 @@ TOL = {
 DEFAULT_KERNELS = ("ssm_scan_grouped", "mha", "frame_attention", "geglu_mlp",
                    "ssm_scan_bwd", "mha_bwd")
 FUSED_KERNELS = ("layer_norm", "group_norm", "gn_silu_conv3x3")
+# the lineage modules, kernels vs plain (phase 8), by activation dtype: in
+# bf16 the scans' outputs round to bf16 in both and a single flip travels
+# through the later units (the CPU tests' bf16 tolerance); in fp32 only the
+# kernel's exp / log1p differ, through 16 blocks
+LINEAGE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+# (pattern, tolerance) of the lineage's scan parameters, whose gradients
+# K6 gives directly (the tolerance of phase 6's K6 groups)
+LINEAGE_GRAD_GROUPS = {
+    "K6 dx_proj": (r"_unit\.x_proj_weight$", 3e-2),
+    "K6 ddt_projs": (r"_unit\.dt_projs_(weight|bias)$", 3e-2),
+    "K6 dA": (r"_unit\.A_logs$", 3e-2),
+    "K6 dD": (r"_unit\.Ds$", 3e-2),
+}
 # a full-width bf16 UNet: kernels and plain versions round activations at
 # different places through ~100 layers
 UNET_TOL = 5e-2
@@ -227,25 +250,28 @@ def attention_bwd(kind):
 def plain_ops():
     """Route the models' kernel call sites (K1-K4; K7-LN, K7-GN and K8 of
     the fused-norm configuration) to the plain versions (their gradients
-    then come from autograd through the plain versions)."""
+    then come from autograd through the plain versions), and K5's forward
+    (inside ``SsmScanArrangedFn`` too) to its plain version; a backward
+    through K5's function takes the plain adjoint under ``plain_adjoint``."""
     from actalker_tpu_torch.models import (
         attention_blocks as ab, common, resnet, ssm)
     from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
 
     saved = (ab.mha_tokens, ab.frame_attention_tokens, ab.geglu_mlp,
              ssm.ssm_scan_grouped, common.layer_norm, common.group_norm,
-             resnet.gn_silu_conv3x3)
+             resnet.gn_silu_conv3x3, ss._arranged_fwd)
     ab.mha_tokens, ab.frame_attention_tokens = (mha.mha_tokens_ref,
                                                 mha.frame_attention_tokens_ref)
     ab.geglu_mlp, ssm.ssm_scan_grouped = mlp.geglu_mlp_ref, ss.ssm_scan_grouped_ref
     common.layer_norm, common.group_norm = norms.layer_norm_ref, norms.group_norm_ref
     resnet.gn_silu_conv3x3 = resconv.gn_silu_conv3x3_ref
+    ss._arranged_fwd = ss.ssm_scan_arranged_ref
     try:
         yield
     finally:
         (ab.mha_tokens, ab.frame_attention_tokens, ab.geglu_mlp,
          ssm.ssm_scan_grouped, common.layer_norm, common.group_norm,
-         resnet.gn_silu_conv3x3) = saved
+         resnet.gn_silu_conv3x3, ss._arranged_fwd) = saved
 
 
 @contextlib.contextmanager
@@ -262,6 +288,16 @@ def fused_norm_config():
     finally:
         common.set_norm_impl(saved[0])
         resnet.set_resconv_impl(saved[1])
+
+
+def lineage_launches(module):
+    """K5 launches of one forward of a lineage module: one per direction of
+    every scan unit (``SS2DUnit``, and ``SS2DSpatial``'s scan parameters,
+    a subclass of it)."""
+    from actalker_tpu_torch.models.ssm import SS2DUnit
+
+    return sum(m.num_direction for m in module.modules()
+               if isinstance(m, SS2DUnit))
 
 
 def fused_launches(*modules):
@@ -370,6 +406,57 @@ def kernel_cases(torch, dev, gen):
         grads, plain_grads, timing, lib, bnd = k6(dp, hw)
         yield ("ssm_scan_bwd", f"Dp={dp} L={hw * hw}+33 Bp=25 G=4 (train)",
                grads, plain_grads, lib, bnd, {"timing": timing})
+
+    def k5(lp, bp, dp, dtype):
+        # one direction of a lineage scan unit: the 2N = 32 B|C lanes of
+        # 128, ~30% masked rows (delta -1e9, exact identity steps)
+        dt = torch.randn(lp, bp, dp, generator=gen, device=dev) * 0.5
+        dt[torch.rand(lp, bp, generator=gen, device=dev) < 0.3] = -1e9
+        bc = torch.zeros(lp, bp, 128, device=dev)
+        bc[..., :32] = torch.randn(lp, bp, 32, generator=gen, device=dev) * 0.5
+        args = (rnd(lp, bp, dp, dtype=dtype), dt.to(dtype), bc.to(dtype),
+                -torch.exp(torch.randn(dp, 16, generator=gen, device=dev) * 0.5),
+                torch.randn(dp, generator=gen, device=dev),
+                torch.randn(dp, generator=gen, device=dev) * 0.5)
+        item = args[0].element_size()
+        # per (token, row, channel): softplus, delta * u, D * u (~10) and per
+        # state exp + mul + 2 FMA (h and y); bytes: u, dt, y and the 32 B|C
+        # lanes once, A / D / bias
+        ops = lp * bp * dp * (10 + 16 * 6)
+        nbytes = lp * bp * (3 * dp + 32) * item + 4 * dp * 18
+        return args, nbytes, ops
+
+    for lp, bp, dp, dtype, what in ((4096 + 33, 56, 640, bf, "V5/V6/V9 res-64"),
+                                    (4096, 8, 128, torch.float32,
+                                     "MambaUPNet last stage")):
+        args, nbytes, ops = k5(lp, bp, dp, dtype)
+        bnd = bound(nbytes, ops, PEAK_FP32)
+        for rev in (False, True):
+            yield ("ssm_scan", f"L={lp} Bp={bp} Dp={dp} {str(dtype)[6:]} "
+                   f"{'reverse' if rev else 'forward'} ({what})",
+                   lambda args=args, rev=rev: ss.ssm_scan_arranged(*args, reverse=rev),
+                   lambda args=args, rev=rev: ss.ssm_scan_arranged_ref(*args, rev),
+                   None, bnd)
+        if dtype is bf:
+            # K5 -> K6: gradients through SsmScanArrangedFn against the same
+            # function with the plain adjoint (K6's rows keep its training
+            # shape's numbers; this case adds its error)
+            ins = [t.requires_grad_(True) for t in args]
+            gy = rnd(lp, bp, dp)
+
+            def k5_grads(ins=ins, gy=gy):
+                return torch.autograd.grad(ss.ssm_scan_arranged(*ins), ins, gy)
+
+            def k5_plain_grads(ins=ins, gy=gy):
+                with plain_adjoint():
+                    return torch.autograd.grad(ss.ssm_scan_arranged(*ins), ins, gy)
+
+            # K5's bound plus K6's (as its training case counts it)
+            ops6 = lp * bp * dp * (16 * (4 + 16) + 10)
+            bytes6 = lp * bp * (dp * (2 + 4 + 2 + 2 + 4) + 2 * 32 * 2)
+            yield ("ssm_scan_bwd", f"K5 -> K6 L={lp} Bp={bp} Dp={dp} bf16 ({what})",
+                   k5_grads, k5_plain_grads, None,
+                   bound(nbytes + bytes6, ops + ops6, PEAK_FP32))
 
     def heads_view(x, h):
         """(B, S, H*d) -> (B, H, S, d) copy, SDPA's layout (made outside
@@ -512,8 +599,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = {k.name: k for k in (ss.KERNEL, mha.MHA_KERNEL,
-                                   mha.FRAME_KERNEL, mlp.KERNEL,
+    kernels = {k.name: k for k in (ss.KERNEL, ss.ARRANGED_KERNEL,
+                                   mha.MHA_KERNEL, mha.FRAME_KERNEL, mlp.KERNEL,
                                    ss.BWD_KERNEL, mha.MHA_BWD_KERNEL,
                                    norms.LN_KERNEL, norms.GN_KERNEL,
                                    resconv.KERNEL)}
@@ -557,6 +644,22 @@ def main() -> int:
     # the last case's closures hold its inputs (the VAE-sized K8 case: ~2
     # GiB), which would otherwise count in the later phases' peaks
     del kern, plain, lib, rest, extras, kern_t, plain_t
+    torch.cuda.empty_cache()
+
+    # K8's stage knock-outs (the bisect tool's check and timing)
+    from actalker_tpu_torch.tools import resconv_bisect
+
+    bisect = resconv_bisect.check_variants(gen)
+    bisect_ms = resconv_bisect.time_variants(gen)
+    for r in bisect:
+        r.update(bisect_ms[r["variant"]])
+        print(f"[3 bisect] {r['variant']} {resconv_bisect.CHECK_SHAPE}: max_abs "
+              f"{r['max_abs_err']:.4g} rel_l2 {r['rel_l2']:.3g} (tol "
+              f"{resconv_bisect.TOL}) | {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms at {resconv_bisect.TIME_SHAPE} | {card}",
+              flush=True)
+    if not all(r["ok"] for r in bisect):
+        raise RuntimeError("a bisect variant of K8 disagrees with its plain version")
     torch.cuda.empty_cache()
 
     # ---- 4: full-width UNet, kernels vs plain versions ----
@@ -832,7 +935,7 @@ def main() -> int:
     # (SS2D block, group) and K2-bwd once per spatial self-attention
     expect = {"ssm_scan_grouped": 2 * 15, "mha": 2 * 16, "frame_attention": 2 * 16,
               "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16,
-              **{n: 0 for n in FUSED_KERNELS}}
+              "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
     print(f"[7 train] {TRAIN_MICRO_STEPS} micro-steps at 512 px x 25 frames, "
           f"batch 1, accumulation 4, block checkpointing, bf16 / fp32 masters: "
           f"seconds per micro-step {sec_step:.4f} s (median of the last 4) | "
@@ -872,16 +975,131 @@ def main() -> int:
     del res, state
     shutil.rmtree(OUT, ignore_errors=True)
 
+    # ---- 8: the SS2D lineage, kernels (K5, K6) vs plain versions ----
+    from actalker_tpu_torch.io.init import lineage_init_
+    from actalker_tpu_torch.models import ssm_spatial as sp
+
+    def lineage_module(make, seed, bf16):
+        with torch.device("meta"):
+            m = make()
+        m = lineage_init_(m, seed=seed, device=dev)
+        return (cast_params_bf16_(m) if bf16 else m).eval()
+
+    g8 = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=g8, device=dev)  # noqa: E731
+    # the UNet's res-64 control block (d_model 320) at the clip's 4 CFG x 14
+    # frames; its tail as v10's: one identity token, 32 audio tokens, one
+    # expression token; the face box as phase 6's (25% of the tokens)
+    x = rn(56, 4096, 320).bfloat16()
+    id_emb, audio, expr = (rn(56, s, 1024).bfloat16() for s in (1, 32, 1))
+    face = torch.zeros(1, 1, 512, 512, device=dev)
+    face[..., 128:384, 128:384] = 1.0
+    v9_args = (x, id_emb, audio, expr, face, face)
+    cond = torch.cat([id_emb, audio], dim=1)       # V5 / V6: L = 4096 + 33
+    cases = (
+        ("SS2DCondV9(320) bf16 (56, 4096, 320), face-box masks",
+         lambda: sp.SS2DCondV9(320), True, v9_args),
+        ("SS2DCondV5(320) bf16 (56, 4096, 320) + 33 cond tokens",
+         lambda: sp.SS2DCondV5(320), True, (x, cond)),
+        ("SS2DCondV6(320) bf16 (56, 4096, 320) + 33 cond tokens",
+         lambda: sp.SS2DCondV6(320), True, (x, cond)),
+        ("MambaUPNet() dims (512, 256, 128, 64) depths (3, 4, 6, 3) fp32 "
+         "(8, 8, 8, 512)", sp.MambaUPNet, False, (rn(8, 8, 8, 512),)),
+    )
+    lineage_counts = {n: 0 for n in kernels}
+    for seed, (label, make, bf16, args) in enumerate(cases):
+        mod = lineage_module(make, seed, bf16)
+        with torch.no_grad():
+            for k in kernels.values():
+                k.launches = 0
+            y_k = mod(*args)
+            counts = {n: k.launches for n, k in kernels.items()}
+            with plain_ops():
+                y_p = mod(*args)
+            ms = timed(torch, lambda: mod(*args), 3)
+        torch.cuda.synchronize()
+        mx, rel = errors(y_k, y_p)
+        tol = LINEAGE_TOL["bfloat16" if bf16 else "float32"]
+        want = {n: 0 for n in kernels}
+        want["ssm_scan"] = lineage_launches(mod)
+        outs = y_k if isinstance(y_k, list) else [y_k]
+        print(f"[8 lineage] {label}: kernels vs plain max_abs {mx:.4g} rel_l2 "
+              f"{rel:.3g} (tol {tol}) | {ms:.4f} ms per forward | outputs "
+              f"{[tuple(o.shape) for o in outs]} | launches {counts['ssm_scan']} "
+              f"K5 (derived {want['ssm_scan']}) | {card}", flush=True)
+        if not (all(torch.isfinite(o.float()).all() for o in outs) and rel <= tol):
+            raise RuntimeError(f"{label} through K5 disagrees with the plain path")
+        if counts != want:
+            raise RuntimeError(f"{label}: launches {counts} != derived {want}")
+        for n in kernels:
+            lineage_counts[n] += counts[n]
+        del mod, y_k, y_p, outs
+    torch.cuda.empty_cache()
+
+    # one V9 loss backward (fp32 masters, bf16 compute, as in training)
+    v9 = lineage_module(cases[0][1], 0, False)
+    named = list(v9.named_parameters())
+    cot = rn(56, 4096, 320)
+
+    def v9_grads():
+        v9.zero_grad(set_to_none=True)
+        loss = (v9(*v9_args).float() * cot).sum()
+        loss.backward()
+        by_group = {g: torch.cat([p.grad.flatten() for n, p in named
+                                  if re.search(pat, n)])
+                    for g, (pat, _) in LINEAGE_GRAD_GROUPS.items()}
+        v9.zero_grad(set_to_none=True)
+        return loss.item(), by_group
+
+    for k in kernels.values():
+        k.launches = 0
+    loss_k, gg_k = v9_grads()
+    counts = {n: k.launches for n, k in kernels.items()}
+    with plain_ops(), plain_adjoint():
+        loss_p, gg_p = v9_grads()
+    torch.cuda.synchronize()
+    rel_g = {g: errors(gg_k[g], gg_p[g])[1] for g in LINEAGE_GRAD_GROUPS}
+    want = {n: 0 for n in kernels}
+    want["ssm_scan"] = want["ssm_scan_bwd"] = lineage_launches(v9)
+    print(f"[8 lineage] SS2DCondV9 loss backward, fp32 masters: loss kernels "
+          f"{loss_k:.6g} plain {loss_p:.6g} | by group (tol) "
+          f"{ {g: f'{r:.3g} ({LINEAGE_GRAD_GROUPS[g][1]})' for g, r in rel_g.items()} }"
+          f" | launches K5 {counts['ssm_scan']} K6 {counts['ssm_scan_bwd']} "
+          f"(derived {want['ssm_scan']} each) | {card}", flush=True)
+    if not (all(torch.isfinite(gg_k[g]).all() and rel_g[g] <= LINEAGE_GRAD_GROUPS[g][1]
+                for g in LINEAGE_GRAD_GROUPS)
+            and abs(loss_k - loss_p) <= LINEAGE_TOL["bfloat16"] * abs(loss_p)):
+        raise RuntimeError("V9 gradients through K5 / K6 disagree with the plain path")
+    if counts != want:
+        raise RuntimeError(f"V9 backward launches {counts} != derived {want}")
+    for n in kernels:
+        lineage_counts[n] += counts[n]
+    del v9, named, gg_k, gg_p, x, cond, v9_args, cot
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
+                    else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
                     else clip_counts[n]) for n in kernels}
+    # every variant runs K8's GEMM at K8's first phase-3 shape (the tool's):
+    # K8's bound and library conv there stand for each
+    k8 = results["gn_silu_conv3x3"]
+    print(json.dumps({"bisect": [{
+        "name": f"gn_silu_conv3x3 {r['variant']}", "route": "cuda",
+        "source": os.path.relpath(resconv.KERNEL.source, ROOT),
+        "replaces": "tools/micro_resconv_bisect.py:79", "launches": 0,
+        "shape": list(resconv_bisect.TIME_SHAPE), "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": k8["bound_ms"],
+        "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
+        "check_shape": list(resconv_bisect.CHECK_SHAPE),
+        "max_abs_err": r["max_abs_err"], "rel_l2": r["rel_l2"]} for r in bisect]}))
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda",
         "source": os.path.relpath(k.source, ROOT),
         "replaces": k.replaces, "launches": launches[n],
         "launches_by_path": {"clip": clip_counts[n],
                              "clip_fused": fused_counts[n],
-                             "train": train_counts[n]},
+                             "train": train_counts[n],
+                             "lineage": lineage_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],

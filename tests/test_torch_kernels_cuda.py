@@ -1,8 +1,9 @@
-"""The PyTorch port's hand-written CUDA kernels (K1-K4, the scan adjoint K6,
-the attention backward K2-bwd, LayerNorm / GroupNorm K7-LN / K7-GN and the
-fused GroupNorm + SiLU + 3x3 conv K8) against their plain PyTorch versions,
-on a CUDA card. Skipped without one. A backward through each autograd
-function must launch its kernels (it cannot silently take a plain path).
+"""The PyTorch port's hand-written CUDA kernels (K1-K4, the single-direction
+scan K5, the scan adjoint K6, the attention backward K2-bwd, LayerNorm /
+GroupNorm K7-LN / K7-GN, the fused GroupNorm + SiLU + 3x3 conv K8 and its
+bisect variants) against their plain PyTorch versions, on a CUDA card.
+Skipped without one. A backward through each autograd function must launch
+its kernels (it cannot silently take a plain path).
 
 This file imports no JAX, so it runs where the card is (that machine has no
 JAX; skip the JAX test configuration):
@@ -325,3 +326,77 @@ def test_k7_k8_backward_launch_forward_kernels(dev):
     want = torch.autograd.grad(
         resconv.gn_silu_conv3x3_ref(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
     assert max(_rel(p, q) for p, q in zip(got, want)) < 1e-5
+
+
+def _k5(dev, dtype, lp=83, bp=3, dp=100, d=90, n=16, nb=128):
+    """One arranged scan's K5 operands: channels [d, dp) padded (zero u),
+    ~30% masked rows (dt = -1e9), B|C in the first 2N of nb lanes."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    u = rn(lp, bp, dp)
+    u[..., d:] = 0
+    dt = 0.5 * rn(lp, bp, dp)
+    dt[torch.rand(lp, bp, generator=gen, device=dev) < 0.3] = -1e9
+    bc = torch.zeros(lp, bp, nb, device=dev)
+    bc[..., :2 * n] = 0.5 * rn(lp, bp, 2 * n)
+    return (u.to(dtype), dt.to(dtype), bc.to(dtype), -torch.exp(0.5 * rn(d, n)),
+            rn(d), 0.5 * rn(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-3)])
+def test_k5_arranged_scan(dev, rev, dtype, tol):
+    """fp32 state in both; bf16 rounds the output (tol 1e-3), fp32 differs
+    only in exp / log1p implementations (tol 1e-5). Masked rows are exact
+    identity steps, pad channels come out zero."""
+    args = _k5(dev, dtype)
+    n0 = ss.ARRANGED_KERNEL.launches
+    y = ss.ssm_scan_arranged(*args, reverse=rev)
+    assert ss.ARRANGED_KERNEL.launches == n0 + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert torch.isfinite(y.float()).all() and not y[..., 90:].any()
+    assert _rel(y, ss.ssm_scan_arranged_ref(*args, rev)) < tol
+
+
+@pytest.mark.cuda
+def test_k5_raises_instead_of_falling_back(dev):
+    """K5 takes N = 16 only, and one dtype for u, dt and bc."""
+    u, dt, bc, a, d, bias = _k5(dev, torch.float32)
+    with pytest.raises(ValueError):
+        ss.ssm_scan_arranged(u, dt, bc, a[:, :4], d, bias)
+    with pytest.raises(ValueError):
+        ss.ssm_scan_arranged(u, dt.bfloat16(), bc, a, d, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+def test_k5_k6_gradients(dev, rev):
+    """A backward through SsmScanArrangedFn launches K5 once and K6 once and
+    agrees with autograd through the plain version (fp32, tol 1e-4: sums
+    over channels and tokens in another order)."""
+    ins = [t.requires_grad_(True) for t in _k5(dev, torch.float32)]
+    gy = torch.randn(ins[0].shape, device=dev)
+    gy[..., 90:] = 0
+    n5, n6 = ss.ARRANGED_KERNEL.launches, ss.BWD_KERNEL.launches
+    got = torch.autograd.grad(ss.ssm_scan_arranged(*ins, reverse=rev), ins, gy)
+    assert ss.ARRANGED_KERNEL.launches == n5 + 1
+    assert ss.BWD_KERNEL.launches == n6 + 1
+    want = torch.autograd.grad(ss.ssm_scan_arranged_ref(*ins, rev), ins, gy)
+    for name, a, b in zip("u dt bc A D bias".split(), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) < 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_k8_bisect_variants(dev):
+    """Each stage knock-out of K8 against its plain version (the bisect
+    tool's check, tol 5e-3 as K8's), one K8-library launch each."""
+    from actalker_tpu_torch.tools import resconv_bisect
+
+    n0 = resconv.KERNEL.launches
+    rows = resconv_bisect.check_variants(torch.Generator(device=dev).manual_seed(4))
+    assert resconv.KERNEL.launches == n0 + len(resconv.VARIANTS)
+    assert [r["variant"] for r in rows] == list(resconv.VARIANTS)
+    assert all(r["ok"] for r in rows), rows

@@ -182,3 +182,64 @@ def test_switch_rejects_unknown_impl():
     with pytest.raises(ValueError):
         resnet.set_resconv_impl("fused")
     assert resnet.resconv_impl() == before
+
+
+def _jax_bisect_tool():
+    """``tools/micro_resconv_bisect.py`` (the TPU tool; ``tools/`` is no
+    package) as a module."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \
+        "micro_resconv_bisect.py"
+    spec = importlib.util.spec_from_file_location("micro_resconv_bisect", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", resconv.VARIANTS)
+def test_bisect_variant_plain_matches_jax_tool(variant):
+    """The bisect tool's plain version of each K8 stage knock-out
+    (``tools/resconv_bisect.variant_ref``) against the TPU tool's kernel of
+    that variant in interpret mode, bf16 as the tool runs it (x, the weights
+    and the output bf16; a, b, cb fp32). Both round the activation to bf16
+    before fp32 sums in different orders, so a single rounding can flip:
+    relative L2 5e-3, K8's tolerance."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from actalker_tpu_torch.tools.resconv_bisect import variant_ref
+
+    tool = _jax_bisect_tool()
+    rng = np.random.default_rng(7)
+    n, h, w, c, co = 2, 4, 8, 16, 24
+    x = (1.5 * rng.standard_normal((n, h, w, c)) + 0.3).astype(np.float32)
+    a = (1 + 0.1 * rng.standard_normal((n, c))).astype(np.float32)
+    b = (0.5 * rng.standard_normal((n, c))).astype(np.float32)
+    wt = ((9 * c) ** -0.5 * rng.standard_normal((co, c, 3, 3))).astype(np.float32)
+    cb = (0.1 * rng.standard_normal(co)).astype(np.float32)
+    xb = jnp.asarray(x.reshape(n, h * w, c), jnp.bfloat16)
+    # w2[ky][kx * C + c, o] = w[o, c, ky, kx]: the tool's three row-shifted
+    # products over its [dx = -1 | 0 | +1] operand columns
+    w2 = jnp.asarray(wt.transpose(2, 3, 1, 0).reshape(3, 3 * c, co), jnp.bfloat16)
+    want = pl.pallas_call(
+        functools.partial(tool.kernel, H=h, W=w, variant=variant),
+        grid=(n,), interpret=True,
+        in_specs=[pl.BlockSpec((1, h * w, c), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((n, c), lambda i: (0, 0)),
+                  pl.BlockSpec((n, c), lambda i: (0, 0)),
+                  pl.BlockSpec((3, 3 * c, co), lambda i: (0, 0, 0)),
+                  pl.BlockSpec((co,), lambda i: (0,))],
+        out_specs=pl.BlockSpec((1, h * w, co), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((n, h * w, co), jnp.bfloat16),
+        scratch_shapes=[tool.pltpu.VMEM(((h + 2) * w, 3 * c), jnp.bfloat16)],
+    )(xb, jnp.asarray(a), jnp.asarray(b), w2, jnp.asarray(cb))
+    want = np.asarray(want.astype(jnp.float32)).reshape(n, h, w, co)
+    got = variant_ref(variant, torch.from_numpy(x).bfloat16(), torch.from_numpy(a),
+                      torch.from_numpy(b), torch.from_numpy(wt).bfloat16(),
+                      torch.from_numpy(cb))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, h, w, co)
+    got = got.float().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 5e-3
