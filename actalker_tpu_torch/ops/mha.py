@@ -10,8 +10,9 @@ Gradients, as the JAX package's custom_vjp rules: ``MhaTokensFn`` runs
 K2's training entry (which also writes the row log-sum-exp) and the
 hand-written backward kernel K2-bwd (the JAX package runs the stock Pallas
 flash-attention backward there); ``FrameAttentionFn`` runs K3 forward and
-differentiates the plain version in its backward, as ``_frame_bwd``
-recomputes through ``_frame_xla``. Under ``no_grad`` the wrappers launch
+differentiates ``frame_attention_tokens_xla`` in its backward, as
+``_frame_bwd`` recomputes through ``_frame_xla`` (products in the input
+dtype, so bf16 in training). Under ``no_grad`` the wrappers launch
 exactly the inference kernels.
 """
 from __future__ import annotations
@@ -162,6 +163,22 @@ def frame_attention_tokens_ref(q, k, v, num_frames: int, heads: int,
     return o.reshape(bf, s, c).to(q.dtype)
 
 
+def frame_attention_tokens_xla(q, k, v, num_frames: int, heads: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Twin of ``_frame_xla``, the function the JAX backward differentiates:
+    both products take and return the input dtype, the softmax runs in fp32
+    and its probabilities are cast back to the input dtype."""
+    bf, s, c = q.shape
+    b = bf // num_frames
+    d = c // heads
+    sc = d ** -0.5 if scale is None else scale
+    q5, k5, v5 = (x.reshape(b, num_frames, s, heads, d) for x in (q, k, v))
+    scores = torch.einsum("bfshd,bgshd->bshfg", q5, k5).float()
+    probs = torch.softmax(scores * sc, dim=-1).to(q.dtype)
+    o = torch.einsum("bshfg,bgshd->bfshd", probs, v5)
+    return o.reshape(bf, s, c)
+
+
 def _frame_fwd(q, k, v, num_frames: int, heads: int,
                scale: Optional[float] = None) -> torch.Tensor:
     """K3 launch (plain version for CPU tensors)."""
@@ -181,8 +198,8 @@ def _frame_fwd(q, k, v, num_frames: int, heads: int,
 
 
 class FrameAttentionFn(torch.autograd.Function):
-    """K3 forward; the backward differentiates the plain version (as the
-    JAX package's ``_frame_bwd`` recomputes through ``_frame_xla``)."""
+    """K3 forward; the backward differentiates ``frame_attention_tokens_xla``
+    (as the JAX package's ``_frame_bwd`` recomputes through ``_frame_xla``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_frames, heads, scale):
@@ -194,7 +211,7 @@ class FrameAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = frame_attention_tokens_ref(*ins, *ctx.args)
+            out = frame_attention_tokens_xla(*ins, *ctx.args)
         return (*torch.autograd.grad(out, ins, do), None, None, None)
 
 

@@ -6,8 +6,10 @@ Twin of ``actalker_tpu/ops/mlp.py``. Weights are in torch ``Linear`` layout
 erf GELU, and h is rounded to the weight dtype before the second product,
 as the TPU kernel does. CPU tensors take the plain version; CUDA tensors
 launch the kernel or raise. When autograd needs it, ``GegluMlpFn`` runs K4
-forward and differentiates the plain version in its backward, as the JAX
-package's ``_mlp_bwd`` recomputes through ``_mlp_xla``.
+forward and differentiates ``geglu_mlp_xla`` in its backward, as the JAX
+package's ``_mlp_bwd`` recomputes through ``_mlp_xla``: its products take
+and return the weights' dtype, so the backward's GEMMs run in bf16 as the
+JAX package's do.
 """
 from __future__ import annotations
 
@@ -34,6 +36,16 @@ def geglu_mlp_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     h2 = x.float() @ w1.float().t() + b1.float()
     h = (h2[..., :inner] * _gelu_erf(h2[..., inner:])).to(w2.dtype)
     return (h.float() @ w2.float().t() + b2.float()).to(x.dtype)
+
+
+def geglu_mlp_xla(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Twin of ``_mlp_xla``, the function the JAX backward differentiates:
+    each product takes and returns the operands' dtype (fp32 accumulation
+    inside), the fp32 biases are added to its output."""
+    inner = w2.shape[1]
+    h2 = (x @ w1.t()).float() + b1.float()
+    h = h2[..., :inner] * _gelu_erf(h2[..., inner:])
+    return ((h.to(w2.dtype) @ w2.t()).float() + b2.float()).to(x.dtype)
 
 
 def _geglu_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -63,7 +75,7 @@ def _geglu_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 class GegluMlpFn(torch.autograd.Function):
-    """K4 forward; the backward differentiates ``geglu_mlp_ref``."""
+    """K4 forward; the backward differentiates ``geglu_mlp_xla``."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
@@ -74,7 +86,7 @@ class GegluMlpFn(torch.autograd.Function):
     def backward(ctx, dy):
         ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = geglu_mlp_ref(*ins)
+            out = geglu_mlp_xla(*ins)
         return torch.autograd.grad(out, ins, dy)
 
 

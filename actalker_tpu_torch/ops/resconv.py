@@ -13,8 +13,10 @@ K8 takes them re-laid out per call as (Co, 9 * C) (tap-major, 9 * C * Co
 bf16, a sliver of the activations). CPU tensors take the plain version;
 CUDA tensors launch K7-GN's statistics and K8 or raise, on every shape the
 configuration reaches (the JAX package's VMEM gate has no counterpart).
-``GnSiluConv3x3Fn`` differentiates the plain version in its backward, as
-the JAX package's ``_bwd`` recomputes through ``_gnconv_xla``.
+``GnSiluConv3x3Fn`` differentiates ``gn_silu_conv3x3_xla`` in its backward,
+as the JAX package's ``_bwd`` recomputes through ``_gnconv_xla``: a conv in
+the compute dtype whose output is taken in fp32, so the backward's convs
+run in bf16.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from actalker_tpu_torch.ops.norms import gn_affine, group_norm_affine
 
 __all__ = ["KERNEL", "VARIANTS", "GnSiluConv3x3Fn", "conv_launch",
            "conv_operands", "gn_affine", "gn_silu_conv3x3",
-           "gn_silu_conv3x3_ref"]
+           "gn_silu_conv3x3_ref", "gn_silu_conv3x3_xla"]
 
 KERNEL = Kernel("gn_silu_conv3x3", replaces="actalker_tpu/ops/resconv.py:43")
 # K8 and its stage knock-outs, one C entry each (the TPU bisect tool's
@@ -47,6 +49,19 @@ def gn_silu_conv3x3_ref(x, gamma, beta, groups: int, eps: float, w, cb
     y = (y * torch.sigmoid(y)).to(x.dtype)
     out = F.conv2d(y.permute(0, 3, 1, 2).float(), w.to(x.dtype).float(),
                    padding=1) + cb.float()[:, None, None]
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def gn_silu_conv3x3_xla(x, gamma, beta, groups: int, eps: float, w, cb
+                        ) -> torch.Tensor:
+    """Twin of ``_gnconv_xla``, the function the JAX backward
+    differentiates: the activation rounded to x's dtype, the conv in that
+    dtype with its output taken in fp32, the fp32 bias added."""
+    a, b = gn_affine(x, gamma, beta, groups, eps)
+    y = x.float() * a[:, None, None, :] + b[:, None, None, :]
+    y = (y * torch.sigmoid(y)).to(x.dtype)
+    out = F.conv2d(y.permute(0, 3, 1, 2), w.to(x.dtype), padding=1).float() \
+        + cb.float()[:, None, None]
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
@@ -93,7 +108,7 @@ def _gn_silu_conv3x3_fwd(x, gamma, beta, groups, eps, w, cb) -> torch.Tensor:
 
 
 class GnSiluConv3x3Fn(torch.autograd.Function):
-    """K8 forward; the backward differentiates ``gn_silu_conv3x3_ref``."""
+    """K8 forward; the backward differentiates ``gn_silu_conv3x3_xla``."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups, eps, w, cb):
@@ -106,7 +121,7 @@ class GnSiluConv3x3Fn(torch.autograd.Function):
         x, gamma, beta, w, cb = [t.detach().requires_grad_(True)
                                  for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = gn_silu_conv3x3_ref(x, gamma, beta, ctx.groups, ctx.eps, w, cb)
+            out = gn_silu_conv3x3_xla(x, gamma, beta, ctx.groups, ctx.eps, w, cb)
         dx, dg, db, dw, dcb = torch.autograd.grad(out, (x, gamma, beta, w, cb),
                                                   dy)
         return dx, dg, db, None, None, dw, dcb

@@ -159,17 +159,10 @@ class ACTalkerPipeline:
     def decode_latents(self, latents: torch.Tensor, decode_chunk_size: int = 10
                        ) -> np.ndarray:
         """(F, h, w, 4) -> (F, H, W, 3) float32 in [-1, 1], decoded in chunks
-        of ``decode_chunk_size`` frames (the last chunk padded by repeating
-        its final frame, as the JAX package keeps one shape)."""
+        of ``decode_chunk_size`` frames; the last chunk is decoded at its own
+        length, as the reference's ``vae.decode(z, num_frames)`` does (the
+        temporal decoder mixes frames, so padding it would change them)."""
         scale = 1.0 / self.m.vae.config.scaling_factor
-        n = latents.shape[0]
-        frames = []
-        for i in range(0, n, decode_chunk_size):
-            chunk = latents[i:i + decode_chunk_size] * scale
-            pad = decode_chunk_size - chunk.shape[0]
-            if pad:
-                chunk = torch.cat([chunk, chunk[-1:].expand(
-                    (pad,) + tuple(chunk.shape[1:]))])
-            out = self.m.vae.decode(chunk[None])[0]
-            frames.append(out[:decode_chunk_size - pad])
-        return torch.cat(frames).float().cpu().numpy()[:n]
+        frames = [self.m.vae.decode(latents[i:i + decode_chunk_size][None] * scale)[0]
+                  for i in range(0, latents.shape[0], decode_chunk_size)]
+        return torch.cat(frames).float().cpu().numpy()

@@ -464,8 +464,12 @@ def kernel_cases(torch, dev, gen):
         b, s, c = x.shape
         return x.view(b, s, h, c // h).transpose(1, 2).contiguous()
 
+    # the window-step's four resolutions (res-64, -32, -16, the res-8 mid
+    # block) and the 576 px latent (S = 5184, no multiple of the tiles);
+    # the training backward at the same S and C
     for b, s, c, h in ((56, 4096, 320, 5), (56, 1024, 640, 10),
-                       (56, 5184, 320, 5)):
+                       (56, 5184, 320, 5), (56, 256, 1280, 20),
+                       (56, 64, 1280, 20)):
         q, k, v = rnd(b, s, c), rnd(b, s, c), rnd(b, s, c)
         qh, kh, vh = (heads_view(x, h) for x in (q, k, v))
         ops = 4 * b * h * s * s * (c // h)
@@ -475,7 +479,8 @@ def kernel_cases(torch, dev, gen):
                lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
                bound(4 * b * s * c * 2, ops, PEAK_BF16))
     for b, s, c, h in ((25, 4096, 320, 5), (25, 1024, 640, 10),
-                       (25, 5184, 320, 5)):
+                       (25, 5184, 320, 5), (25, 256, 1280, 20),
+                       (25, 64, 1280, 20)):
         q, k, v, do = (rnd(b, s, c) for _ in range(4))
         o, lse = mha._mha_fwd(q, k, v, h, with_lse=True)
         qh, kh, vh = (heads_view(x, h).detach().requires_grad_(True)

@@ -14,6 +14,8 @@ Shapes are small but ragged (edges that are no multiple of the kernels'
 tiles); ``chip_smoke.py`` repeats the check at the flagship shapes.
 Tolerances are relative L2 errors, stated per kernel with their reason.
 """
+import math
+
 import pytest
 import torch
 
@@ -62,8 +64,15 @@ def test_k1_grouped_scan(dev, dtype, tol):
     assert _rel(y, ss.ssm_scan_grouped_ref(*args)) < tol
 
 
+# K2 / K2-bwd shapes: ragged S (300, 1000, and 5184 = the 576 px latent,
+# none a multiple of the 128-row tiles), S shorter than one tile (64, 40),
+# and the res-16 / res-8 widths (C = 1280, H = 20)
+K2_SHAPES = [(2, 300, 2), (3, 64, 5), (1, 1000, 1), (1, 5184, 5), (2, 256, 20),
+             (1, 40, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h", [(2, 300, 2), (3, 64, 5), (1, 1000, 1)])
+@pytest.mark.parametrize("b,s,h", K2_SHAPES)
 def test_k2_mha(dev, b, s, h):
     """Probabilities are rounded to bf16 before P @ V (tol 1e-2)."""
     q, k, v = (torch.randn(b, s, 64 * h, device=dev).bfloat16() for _ in range(3))
@@ -166,7 +175,67 @@ def test_k6_through_grouped_autograd(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h", [(2, 300, 2), (3, 64, 5), (1, 1000, 1)])
+@pytest.mark.parametrize("b,s,h", [(2, 300, 2), (1, 64, 20), (1, 5184, 5)])
+def test_k2_lse_entry(dev, b, s, h):
+    """The training entry writes the base-2 log-sum-exp of the scaled
+    scores (fp32 sums of exp2.approx terms: atol 1e-3 on values ~10) and
+    the same output as the inference entry, bit for bit."""
+    q, k, v = (torch.randn(b, s, 64 * h, device=dev).bfloat16() for _ in range(3))
+    n0 = mha.MHA_KERNEL.launches
+    o, lse = mha._mha_fwd(q, k, v, h, with_lse=True)
+    assert mha.MHA_KERNEL.launches == n0 + 1
+    qh, kh = (x.float().view(b, s, h, 64).transpose(1, 2) for x in (q, k))
+    want = torch.logsumexp(qh @ kh.transpose(-1, -2) / 8.0, -1) / math.log(2.0)
+    assert lse.shape == (b, h, s) and torch.isfinite(lse).all()
+    assert (lse - want).abs().max().item() < 1e-3
+    assert torch.equal(o, mha.mha_tokens(q, k, v, h))
+
+
+@pytest.mark.cuda
+def test_k2_raises_on_views(dev):
+    """TMA reads rows at 16-byte-aligned addresses of a contiguous (B, S,
+    C) tensor: a strided view and one misaligned by one element raise in
+    the wrappers, forward and backward, and launch nothing."""
+    x = torch.randn(2 * 130 * 128 + 8, device=dev).bfloat16()
+    strided = x[:2 * 130 * 128].view(2, 130, 128)[:, ::2]
+    shifted = x[1:1 + 2 * 64 * 128].view(2, 64, 128)
+    n2, nb = mha.MHA_KERNEL.launches, mha.MHA_BWD_KERNEL.launches
+    for bad in (strided, shifted):
+        with pytest.raises(ValueError):
+            mha.mha_tokens(bad, bad, bad, 2)
+        good = torch.zeros(bad.shape, device=dev).bfloat16()
+        lse = torch.zeros(bad.shape[0], 2, bad.shape[1], device=dev)
+        with pytest.raises(ValueError):
+            mha.mha_tokens_bwd(good, good, good, good, lse, bad, 2)
+    assert (mha.MHA_KERNEL.launches, mha.MHA_BWD_KERNEL.launches) == (n2, nb)
+
+
+@pytest.mark.cuda
+def test_k2_from_a_fresh_thread(dev):
+    """The TMA tensor maps are encoded by ``cuTensorMapEncodeTiled``,
+    which wants a current context: a thread that has made no CUDA call yet
+    (no autograd worker, no device set) still launches both kernels."""
+    import threading
+
+    q, k, v, do = (torch.randn(2, 300, 128, device=dev).bfloat16() for _ in range(4))
+    o, lse = mha._mha_fwd(q, k, v, 2, with_lse=True)
+    got = {}
+
+    def run():
+        got["o"] = mha.mha_tokens(q, k, v, 2)
+        got["grads"] = mha.mha_tokens_bwd(q, k, v, o, lse, do, 2)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert torch.equal(got["o"], o)
+    for a, w in zip(got["grads"], mha.mha_tokens_bwd(q, k, v, o, lse, do, 2)):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", K2_SHAPES)
 def test_k2_backward(dev, b, s, h):
     """K2-bwd against autograd through the plain version: P and dS are
     rounded to bf16 before their products (tol 1e-2)."""
@@ -190,7 +259,8 @@ def test_k2_backward(dev, b, s, h):
 @pytest.mark.cuda
 def test_frame_and_mlp_backward_launch_forward_kernels(dev):
     """FrameAttentionFn / GegluMlpFn run K3 / K4 forward and differentiate
-    the plain version; gradients match autograd through it."""
+    their bf16 twins of the JAX package's XLA functions; gradients match
+    autograd through those twins."""
     q, k, v = (torch.randn(6, 17, 128, device=dev).bfloat16().requires_grad_(True)
                for _ in range(3))
     n3 = mha.FRAME_KERNEL.launches
@@ -198,7 +268,7 @@ def test_frame_and_mlp_backward_launch_forward_kernels(dev):
                               (q, k, v))
     assert mha.FRAME_KERNEL.launches == n3 + 1
     want = torch.autograd.grad(
-        mha.frame_attention_tokens_ref(q, k, v, 3, 2).float().sum(), (q, k, v))
+        mha.frame_attention_tokens_xla(q, k, v, 3, 2).float().sum(), (q, k, v))
     assert max(_rel(a, b) for a, b in zip(got, want)) < 1e-6
     x = torch.randn(40, 64, device=dev).bfloat16().requires_grad_(True)
     w1 = (torch.randn(512, 64, device=dev) * 0.1).bfloat16().requires_grad_(True)
@@ -209,7 +279,7 @@ def test_frame_and_mlp_backward_launch_forward_kernels(dev):
     got = torch.autograd.grad(mlp.geglu_mlp(x, w1, b1, w2, b2).float().sum(),
                               (x, w1, b1, w2, b2))
     assert mlp.KERNEL.launches == n4 + 2
-    want = torch.autograd.grad(mlp.geglu_mlp_ref(x, w1, b1, w2, b2).float().sum(),
+    want = torch.autograd.grad(mlp.geglu_mlp_xla(x, w1, b1, w2, b2).float().sum(),
                                (x, w1, b1, w2, b2))
     assert max(_rel(a, b) for a, b in zip(got, want)) < 1e-6
 
@@ -303,7 +373,8 @@ def test_k7_k8_raise_instead_of_falling_back(dev):
 @pytest.mark.cuda
 def test_k7_k8_backward_launch_forward_kernels(dev):
     """LayerNormFn / GroupNormFn / GnSiluConv3x3Fn run the kernel forward and
-    differentiate the plain version; gradients match autograd through it."""
+    differentiate the plain version (K8: its bf16 twin of the JAX package's
+    ``_gnconv_xla``); gradients match autograd through it."""
     x = torch.randn(2, 6, 6, 64, device=dev).requires_grad_(True)
     g = (1 + 0.1 * torch.randn(64, device=dev)).requires_grad_(True)
     b = (0.1 * torch.randn(64, device=dev)).requires_grad_(True)
@@ -324,7 +395,7 @@ def test_k7_k8_backward_launch_forward_kernels(dev):
         resconv.gn_silu_conv3x3(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
     assert resconv.KERNEL.launches == n8 + 1
     want = torch.autograd.grad(
-        resconv.gn_silu_conv3x3_ref(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
+        resconv.gn_silu_conv3x3_xla(xb, g, b, 8, 1e-5, w, cb).float().sum(), ins)
     assert max(_rel(p, q) for p, q in zip(got, want)) < 1e-5
 
 

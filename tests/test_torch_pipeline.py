@@ -29,7 +29,8 @@ import torch
 from actalker_tpu.io import weights as W
 from actalker_tpu.io.init import init_pipeline_params
 from actalker_tpu.models.unet import UNetConfig as JUNetConfig
-from actalker_tpu.models.vae import VAEConfig as JVAEConfig
+from actalker_tpu.models.vae import (
+    AutoencoderKLTemporalDecoder, VAEConfig as JVAEConfig)
 from actalker_tpu.pipeline.pipeline import (
     ACTalkerPipeline as JPipeline, PipelineModules as JModules)
 from actalker_tpu.pipeline.sampler import SamplerConfig as JSamplerConfig
@@ -90,6 +91,14 @@ def _jax_noise_aug(seed):
     return np.asarray(jax.random.normal(k_aug, (1, PX, PX, 3)))[0]
 
 
+def _jax_decode(jpipe, latents):
+    """The JAX VAE's ``decode`` of one chunk of latents at its own length."""
+    z = latents[None] / jpipe.m.vae.config.scaling_factor
+    out = jpipe.m.vae.apply(jpipe.params["vae"], z,
+                            method=AutoencoderKLTemporalDecoder.decode)[0]
+    return np.asarray(out, np.float32)
+
+
 def _run_both(jpipe, tpipe, gate, audio_mask=None, windows_per_call=0):
     x = _inputs()
     jcfg = JSamplerConfig(gate=gate, **SAMPLER)
@@ -112,11 +121,32 @@ def test_generate_and_decode_mode2(pipes):
     lat_j, lat_t = _run_both(jpipe, tpipe, gate=(1, 1))
     assert lat_t.shape == (NF, 8, 8, 4) and torch.isfinite(lat_t).all()
     _rel_close(lat_t, lat_j)
+    # NF = 3 in chunks of 2 leaves a 1-frame remainder: the port decodes it
+    # at its own length, the JAX pipeline pads it with copies of its last
+    # frame, so the JAX pipeline is the reference for the full chunk and the
+    # JAX VAE's decode of the unpadded remainder for the last frame
     frames_j = jpipe.decode_latents(lat_j, decode_chunk_size=2)
     frames_t = tpipe.decode_latents(torch.tensor(np.asarray(lat_j)),
                                     decode_chunk_size=2)
     assert frames_t.shape == (NF, PX, PX, 3)
-    _rel_close(frames_t, frames_j)
+    _rel_close(frames_t[:2], frames_j[:2])
+    _rel_close(frames_t[2:], _jax_decode(jpipe, lat_j[2:]))
+
+
+def test_decode_last_chunk_at_its_own_length(pipes):
+    """``decode_latents`` decodes the remainder chunk unpadded: its frames
+    are the VAE's decode of that chunk alone, bit for bit, and differ from
+    those of the chunk padded with copies of its last frame, which the
+    temporal decoder mixes in."""
+    _, tpipe, _ = pipes
+    lat = torch.from_numpy(_inputs()["noise"][:NF])
+    frames = tpipe.decode_latents(lat, decode_chunk_size=2)
+    z = lat[2:] * (1.0 / tpipe.m.vae.config.scaling_factor)
+    with torch.no_grad():
+        alone = tpipe.m.vae.decode(z[None])[0].numpy()
+        padded = tpipe.m.vae.decode(torch.cat([z, z])[None])[0][:1].numpy()
+    np.testing.assert_array_equal(frames[2:], alone)
+    assert np.abs(alone - padded).max() > 1e-3 * np.abs(alone).max()
 
 
 def test_generate_mode0_face_box_masked_dense_matches_gather(pipes):
@@ -194,7 +224,8 @@ def test_generate_and_decode_mode2_fused_configuration(pipes, monkeypatch):
 
     Latents at the file's tolerance (guidance 7.5 over two steps: the
     default configuration reads 2.0e-4 of a 1.27 maximum here, this one
-    1.2e-4); the decoded frames at rtol=1e-4 / atol=1e-5."""
+    1.2e-4); the decoded frames at rtol=1e-4 / atol=1e-5, the last
+    (a 1-frame remainder chunk) against the JAX VAE's decode of it."""
     import chip_smoke
     from actalker_tpu_torch.models import common, resnet
     from tests.test_torch_resconv import switches
@@ -220,11 +251,15 @@ def test_generate_and_decode_mode2_fused_configuration(pipes, monkeypatch):
             frames_j = fresh.decode_latents(lat_j, decode_chunk_size=2)
             frames_t = tpipe.decode_latents(torch.tensor(np.asarray(lat_j)),
                                             decode_chunk_size=2)
+            last_j = _jax_decode(fresh, lat_j[2:])
     finally:
         hook.remove()
     m, fl = tpipe.m, chip_smoke.fused_launches
     parts = ((len(unet_calls), fl(m.unet)), (2, fl(m.vae.encoder)),
              (-(-NF // 2), fl(m.vae.decoder)), (1, fl(m.id_proj, m.pose_guider)))
     assert calls == {k: sum(n * per[k] for n, per in parts) for k in calls}
-    np.testing.assert_allclose(frames_t, np.asarray(frames_j), rtol=1e-4,
-                               atol=1e-5)
+    # the full chunk against the JAX pipeline, the unpadded remainder
+    # against the JAX VAE's decode of it (as in the default configuration)
+    np.testing.assert_allclose(frames_t[:2], np.asarray(frames_j)[:2],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(frames_t[2:], last_j, rtol=1e-4, atol=1e-5)
