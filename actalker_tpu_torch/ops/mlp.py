@@ -58,6 +58,7 @@ def _geglu_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     check(tuple(w1.shape) == (2 * inner, c), f"K4: w1 {tuple(w1.shape)}")
     check(tuple(b1.shape) == (2 * inner,) and tuple(b2.shape) == (cout,),
           "K4: bias shapes")
+    # TMA reads rows at 16-byte strides; the epilogue stores column pairs
     check(c % 8 == 0 and inner % 8 == 0 and cout % 2 == 0,
           f"K4: C={c} and I={inner} must be multiples of 8, Cout even")
     x2 = x.reshape(m, c)

@@ -183,7 +183,8 @@ def _grouped_fwd(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
     Group g reads activations from branch slab g // 2 of ``u_g`` and scans
     left to right for even g, right to left for odd g. Returns
     (L, B, G * Dp) with each group's output in its own minor slab. Only slab
-    rows [0, rank) and MASK_LANE of ``dtw_g`` may be nonzero. CPU tensors
+    rows [0, rank) and MASK_LANE of ``dtw_g`` may be nonzero; the kernel
+    takes Dp a multiple of 8 (it copies u in 16-byte vectors). CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     if not u_g.is_cuda:
         return ssm_scan_grouped_ref(u_g, slab_g, dtw_g, A_g, D_g, bias_g,
@@ -202,6 +203,7 @@ def _grouped_fwd(u_g: torch.Tensor,      # (L, B, G//2 * Dp) branch slabs
           "K1: D / bias must be (G, Dp)")
     check(0 < rank and rank + 2 * D_STATE <= MASK_LANE,
           f"K1: rank {rank} leaves no room for B|C below lane {MASK_LANE}")
+    check(dp % 8 == 0, f"K1: Dp={dp} must be a multiple of 8 (16-byte copies)")
     act = (torch.bfloat16, torch.float32)
     f32 = (torch.float32,)
     check_cuda_tensors("K1", (u_g, slab_g, dtw_g, A_g, D_g, bias_g),

@@ -18,7 +18,9 @@ Phases, one line each (any failure raises and exits non-zero):
      the shapes the clip, training and lineage paths give it, same inputs,
      fp32 accumulation in the plain version, with CUDA-event times
      (median), the time of one PyTorch library call computing the same
-     function where there is one, and the data-sheet bound; then K8's five
+     function where there is one, and the data-sheet bound (K1 also its
+     special-function floor; K4 and K8 also a chain of library calls
+     computing their function, timed only); then K8's five
      bisect variants (``tools/resconv_bisect.py``) against their plain
      versions at a small shape, and timed at (56, 64, 64, 320 -> 320);
   4. UNet: one full-width bf16 forward (UNetConfig(), seeded weights) on a
@@ -186,6 +188,20 @@ def errors(a, b):
     d = a - b
     return (d.abs().max().item(),
             (d.norm() / b.norm().clamp_min(1e-30)).item())
+
+
+def sfu_floor_ms(n_special):
+    """Least time (ms) for ``n_special`` exp2 / log2 on the card's
+    special-function units: 16 per SM per clock at the card's largest SM
+    clock (nvidia-smi's clocks.max.sm), on every SM."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_special / (16 * sms * mhz * 1e6) * 1e3
 
 
 def bound(nbytes, ops, peak):
@@ -361,11 +377,17 @@ def kernel_cases(torch, dev, gen):
         # softplus, and per state exp + mul + 2 FMA (y and h)
         ops = l * bp * 4 * dp * (2 * (r + 1) + 10 + 16 * 6)
         nbytes = 2 * l * bp * (2 * dp + 4 * 128 + 4 * dp) + 4 * 4 * dp * (128 + 19)
+        # the special-function floor: 16 exps and a softplus (exp, log) per
+        # (token, row, group, channel), not part of the bound
+        floor = sfu_floor_ms(l * bp * 4 * dp * 18)
         return (lambda: ss.ssm_scan_grouped(*args),
                 lambda: ss.ssm_scan_grouped_ref(*args), None,
-                bound(nbytes, ops, PEAK_FP32))
+                bound(nbytes, ops, PEAK_FP32), {"floor": floor})
 
+    # the window-step's three SS2D resolutions: res-64 (rank 20), res-32
+    # (rank 40), res-16 (rank 80)
     yield ("ssm_scan_grouped", "Dp=640 L=4096+33 Bp=56 (res-64)", *k1(640, 64))
+    yield ("ssm_scan_grouped", "Dp=1280 L=1024+33 Bp=56 (res-32)", *k1(1280, 32))
     yield ("ssm_scan_grouped", "Dp=2560 L=256+33 Bp=56 (res-16)", *k1(2560, 16))
 
     def k6(dp, hw):
@@ -507,15 +529,28 @@ def kernel_cases(torch, dev, gen):
                lambda q=q, k=k, v=v, f=f: mha.frame_attention_tokens_ref(q, k, v, f, 5),
                lambda qf=qf, kf=kf, vf=vf: F.scaled_dot_product_attention(qf, kf, vf),
                bound(4 * 4 * f * 4096 * 320 * 2, ops, PEAK_BF16))
-    for c in (320, 1280):
-        m = 56 * 4096
+    def geglu_chain(x, w1, b1, w2, b2):
+        # the library chain: F.linear -> fp32 gate -> F.linear, bf16 products
+        inner = w2.shape[1]
+        h2 = F.linear(x, w1, b1)
+        g = h2[:, inner:].float()
+        h = (h2[:, :inner].float() * 0.5 * g * (1.0 + torch.erf(g * 2 ** -0.5))).to(bf)
+        return F.linear(h, w2, b2)
+
+    # the window-step's feed-forwards (res-64, -32, -16 and the res-8 mid
+    # block), and C = 1280 at res-64's M (off the path)
+    for m, c, what in ((56 * 4096, 320, "res-64"), (56 * 1024, 640, "res-32"),
+                       (56 * 256, 1280, "res-16"), (56 * 64, 1280, "res-8"),
+                       (56 * 4096, 1280, "off the path")):
         x = rnd(m, c)
         w1, b1 = rnd(8 * c, c, scale=c ** -0.5), rnd(8 * c, dtype=torch.float32, scale=0.1)
         w2, b2 = rnd(c, 4 * c, scale=(4 * c) ** -0.5), rnd(c, dtype=torch.float32, scale=0.1)
-        yield ("geglu_mlp", f"M={m} C={c}",
+        yield ("geglu_mlp", f"M={m} C={c} ({what})",
                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: mlp.geglu_mlp(x, w1, b1, w2, b2),
                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: mlp.geglu_mlp_ref(x, w1, b1, w2, b2),
-               None, bound(2 * (2 * m * c + 12 * c * c), 24 * m * c * c, PEAK_BF16))
+               None, bound(2 * (2 * m * c + 12 * c * c), 24 * m * c * c, PEAK_BF16),
+               {"chain": lambda x=x, w1=w1, b1=b1.to(bf), w2=w2, b2=b2.to(bf):
+                    geglu_chain(x, w1, b1, w2, b2)})
 
     # the fused-norm configuration: K7-LN at the transformers' (B*F*HW, C),
     # the res-16 SSM out_norm and the fp32 projection heads; K7-GN at the
@@ -635,6 +670,8 @@ def main() -> int:
                        for key, what in (("alone", "launch alone"),
                                          ("chain", "library chain"))
                        if key in extras)
+        if "floor" in extras:
+            more += f" exp floor {extras['floor']:.4f} ms"
         print(f"[3 kernel] {name} {label}: max_abs {mx:.4g} rel_l2 {rel:.3g} "
               f"(tol {TOL[name]}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"library {lib_txt}{more} bound {bound_ms:.4f} ms ({bound_by}) "

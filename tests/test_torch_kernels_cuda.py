@@ -64,6 +64,68 @@ def test_k1_grouped_scan(dev, dtype, tol):
     assert _rel(y, ss.ssm_scan_grouped_ref(*args)) < tol
 
 
+# K1 edges: L shorter than one 32-token chunk, L and Dp no multiple of the
+# chunk or of the 128-channel block, ranks 13 / 20 / 40 / 80 (the res-64 /
+# res-32 / res-16 widths), one branch (G = 2)
+K1_SHAPES = [(7, 3, 64, 13, 4), (100, 2, 200, 20, 4), (33, 4, 136, 80, 4),
+             (65, 2, 264, 40, 2), (300, 1, 640, 20, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp,bp,dp,rank,g", K1_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-3)])
+def test_k1_grouped_scan_edges(dev, lp, bp, dp, rank, g, dtype, tol):
+    """As ``test_k1_grouped_scan`` at the edges of the chunked, staged
+    design; even groups scan left to right, odd ones right to left."""
+    u, slab, dtw, a, d, bias, _ = _grouped(dev, dtype, lp, bp, dp, rank)
+    args = (u[..., :g // 2 * dp].contiguous(), slab[..., :g * 128].contiguous(),
+            dtw[:g].contiguous(), a[:g].contiguous(), d[:g].contiguous(),
+            bias[:g].contiguous(), rank)
+    n0 = ss.KERNEL.launches
+    y = ss.ssm_scan_grouped(*args)
+    assert ss.KERNEL.launches == n0 + 1
+    assert y.shape == (lp, bp, g * dp) and torch.isfinite(y.float()).all()
+    assert _rel(y, ss.ssm_scan_grouped_ref(*args)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_every_token_masked(dev, dtype):
+    """Every token masked: each step is an exact identity, the state stays
+    0 and y = D * u (one rounding to the output dtype); no token masked:
+    the plain version's tolerance as above."""
+    u, slab, dtw, a, d, bias, rank = _grouped(dev, dtype, lp=70, dp=136)
+    for gi in range(4):
+        slab[:, :, gi * 128 + ss.MASK_LANE] = 1
+    y = ss.ssm_scan_grouped(u, slab, dtw, a, d, bias, rank)
+    want = torch.cat([u[..., (gi // 2) * 136:(gi // 2 + 1) * 136].float() * d[gi]
+                      for gi in range(4)], dim=-1).to(dtype)
+    assert torch.equal(y, want)
+    for gi in range(4):
+        slab[:, :, gi * 128 + ss.MASK_LANE] = 0
+    y = ss.ssm_scan_grouped(u, slab, dtw, a, d, bias, rank)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert _rel(y, ss.ssm_scan_grouped_ref(u, slab, dtw, a, d, bias, rank)) < tol
+
+
+@pytest.mark.cuda
+def test_k1_raises_instead_of_falling_back(dev):
+    """Dp must be a multiple of 8 (16-byte copies), the slab must match u's
+    dtype, and every operand must be contiguous."""
+    u, slab, dtw, a, d, bias, rank = _grouped(dev, torch.float32, dp=100)
+    n0 = ss.KERNEL.launches
+    with pytest.raises(ValueError):
+        ss.ssm_scan_grouped(u, slab, dtw, a, d, bias, rank)
+    u, slab, dtw, a, d, bias, rank = _grouped(dev, torch.float32)
+    with pytest.raises(ValueError):
+        ss.ssm_scan_grouped(u, slab.bfloat16(), dtw, a, d, bias, rank)
+    with pytest.raises(ValueError):
+        ss.ssm_scan_grouped(u.transpose(0, 1).contiguous().transpose(0, 1),
+                            slab, dtw, a, d, bias, rank)
+    assert ss.KERNEL.launches == n0
+
+
 # K2 / K2-bwd shapes: ragged S (300, 1000, and 5184 = the 576 px latent,
 # none a multiple of the 128-row tiles), S shorter than one tile (64, 40),
 # and the res-16 / res-8 widths (C = 1280, H = 20)
@@ -107,6 +169,71 @@ def test_k4_geglu_mlp(dev, m, c, cout):
     y = mlp.geglu_mlp(x, w1, b1, w2, b2)
     assert mlp.KERNEL.launches == n0 + 2          # two GEMM launches per call
     assert _rel(y, mlp.geglu_mlp_ref(x, w1, b1, w2, b2)) < 5e-3
+
+
+def _mlp_args(dev, m, c, cout, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    return (rn(m, c).bfloat16(), (rn(8 * c, c) * c ** -0.5).bfloat16(),
+            0.1 * rn(8 * c), (rn(cout, 4 * c) * (4 * c) ** -0.5).bfloat16(),
+            0.1 * rn(cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,cout", [
+    (100, 320, 320), (128, 320, 320), (1000, 640, 640), (300, 1280, 1280),
+    (257, 320, 640), (77, 640, 200)])
+def test_k4_geglu_mlp_widths(dev, m, c, cout):
+    """The UNet's widths (C = 320 / 640 / 1280, I = 4C), M below one 128-row
+    tile, exactly one, and none a multiple; Cout != C, and Cout not a
+    multiple of the 128-column tile (tol 5e-3, as above)."""
+    args = _mlp_args(dev, m, c, cout)
+    n0 = mlp.KERNEL.launches
+    y = mlp.geglu_mlp(*args)
+    assert mlp.KERNEL.launches == n0 + 2
+    assert y.shape == (m, cout) and torch.isfinite(y.float()).all()
+    assert _rel(y, mlp.geglu_mlp_ref(*args)) < 5e-3
+
+
+@pytest.mark.cuda
+def test_k4_views_raise_or_are_handled(dev):
+    """TMA reads 16-byte-aligned rows of contiguous tensors: x misaligned by
+    one element, x with rows 2C apart, or a strided weight raises and
+    launches nothing. Leading dims of a contiguous x fold into M."""
+    x, w1, b1, w2, b2 = _mlp_args(dev, 96, 64, 64)
+    n0 = mlp.KERNEL.launches
+    flat = torch.cat([x.flatten(), x.new_zeros(8)])
+    shifted = flat[1:1 + x.numel()].view(x.shape)
+    strided = torch.stack([x, x], dim=1)[:, 0]
+    wide = torch.cat([w1, w1], dim=1)[:, ::2]           # same shape, strided
+    for args in ((shifted, w1, b1, w2, b2), (strided, w1, b1, w2, b2),
+                 (x, wide, b1, w2, b2)):
+        with pytest.raises(ValueError):
+            mlp.geglu_mlp(*args)
+    assert mlp.KERNEL.launches == n0
+    got = mlp.geglu_mlp(x.view(4, 24, 64), w1, b1, w2, b2)
+    assert got.shape == (4, 24, 64)
+    assert torch.equal(got.view(96, 64), mlp.geglu_mlp(x, w1, b1, w2, b2))
+
+
+@pytest.mark.cuda
+def test_k4_from_a_fresh_thread(dev):
+    """K4 encodes TMA tensor maps, which want a current context: a thread
+    that has made no CUDA call yet gives the same bits."""
+    import threading
+
+    args = _mlp_args(dev, 200, 64, 64)
+    want = mlp.geglu_mlp(*args)
+    got = {}
+
+    def run():
+        got["y"] = mlp.geglu_mlp(*args)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert torch.equal(got["y"], want)
 
 
 @pytest.mark.cuda
