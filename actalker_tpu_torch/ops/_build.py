@@ -120,7 +120,45 @@ def needs_grad(*tensors) -> bool:
     ``torch.autograd.Function``, else it launches the bare forward."""
     import torch
 
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t.requires_grad:
+                return True
+    return False
+
+
+# (id(t), kind) -> (weak reference to t, t's version, the derived tensor)
+_DERIVED: dict = {}
+
+
+def derived(t, kind, make):
+    """``make(t)`` (under no_grad), kept while t lives and its version
+    counter does not move, so that a wrapper re-lays out or casts a
+    parameter once and not on every call; an in-place update (an optimizer
+    step, ``copy_``) rebuilds it. ``kind`` names the derivation."""
+    import weakref
+
+    import torch
+
+    key = (id(t), kind)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    with torch.no_grad():
+        value = make(t.detach())
+    ref = weakref.ref(t, lambda _, key=key: _DERIVED.pop(key, None))
+    _DERIVED[key] = (ref, t._version, value)
+    return value
+
+
+def fp32_of(t):
+    """t as a contiguous fp32 tensor: itself when it is one, else a copy
+    cast once per tensor and version (``derived``)."""
+    import torch
+
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return derived(t, "fp32", lambda u: u.float().contiguous())
 
 
 def ptr(t) -> int:
@@ -128,9 +166,11 @@ def ptr(t) -> int:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream on t's device (the
+    binding's direct getter: no Stream object is built per launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -141,14 +181,17 @@ def check(cond: bool, msg: str) -> None:
 def check_cuda_tensors(name: str, tensors: Sequence, dtypes: Dict[str, tuple]
                        ) -> None:
     """Device / dtype / contiguity / 16-byte alignment checks shared by the
-    wrappers (the kernels read rows with 16-byte vector loads)."""
-    dev = None
+    wrappers (the kernels read rows with 16-byte vector loads). The message
+    is built only when a check fails: on the launch path the checks cost a
+    few attribute reads per tensor."""
+    dev = tensors[0].device
     for key, t in zip(dtypes, tensors):
-        check(t.is_cuda, f"{name}: {key} must be a CUDA tensor")
-        check(t.dtype in dtypes[key],
-              f"{name}: {key} dtype {t.dtype} not in {dtypes[key]}")
-        check(t.is_contiguous(), f"{name}: {key} must be contiguous")
-        check(t.data_ptr() % 16 == 0, f"{name}: {key} must be 16-byte aligned")
-        if dev is None:
-            dev = t.device
-        check(t.device == dev, f"{name}: all tensors must be on {dev}")
+        if not (t.is_cuda and t.dtype in dtypes[key] and t.is_contiguous()
+                and t.data_ptr() % 16 == 0 and t.device == dev):
+            check(t.is_cuda, f"{name}: {key} must be a CUDA tensor")
+            check(t.dtype in dtypes[key],
+                  f"{name}: {key} dtype {t.dtype} not in {dtypes[key]}")
+            check(t.is_contiguous(), f"{name}: {key} must be contiguous")
+            check(t.data_ptr() % 16 == 0,
+                  f"{name}: {key} must be 16-byte aligned")
+            check(False, f"{name}: all tensors must be on {dev}")

@@ -21,7 +21,7 @@ import math
 import torch
 
 from actalker_tpu_torch.ops._build import (
-    Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
+    Kernel, check, check_cuda_tensors, fp32_of, needs_grad, ptr, stream_of)
 
 LN_KERNEL = Kernel("layer_norm", replaces="actalker_tpu/ops/norms.py:35")
 GN_KERNEL = Kernel("group_norm", replaces="actalker_tpu/ops/norms.py:119")
@@ -68,26 +68,58 @@ def group_norm_ref(x, gamma, beta, groups: int = 32, eps: float = 1e-5
 
 def _check_affine_args(name, x, gamma, beta):
     c = x.shape[-1]
-    check(c % 8 == 0, f"{name}: C={c} must be a multiple of 8")
-    check(tuple(gamma.shape) == (c,) and tuple(beta.shape) == (c,),
-          f"{name}: gamma / beta must be ({c},)")
+    if c % 8 or gamma.shape != (c,) or beta.shape != (c,):
+        check(c % 8 == 0, f"{name}: C={c} must be a multiple of 8")
+        check(False, f"{name}: gamma / beta must be ({c},)")
+
+
+_NORM_DTYPES = {"x": _DTYPES, "gamma": _F32, "beta": _F32}
+
+
+_LN_FN = {dt: f"layer_norm_{sfx}" for dt, sfx in _SUFFIX.items()}
+
+
+def _ln_launch(x, xp: int, gp: int, bp: int, y, eps: float, dev: int) -> None:
+    """K7-LN's launch on x's device ``dev``: x / y contiguous of one dtype,
+    (..., C), normalized over C; xp / gp / bp the pointers of x, gamma and
+    beta (fp32 (C,))."""
+    c = x.shape[-1]
+    LN_KERNEL.launch(_LN_FN[x.dtype], "ppppiifp", xp, gp, bp, y.data_ptr(),
+                     x.numel() // c, c, eps,
+                     torch._C._cuda_getCurrentRawStream(dev))
+
+
+def layer_norm_launch(x, gamma, beta, y, eps: float) -> None:
+    """The bare K7-LN launch into y, on operands that pass the wrapper's
+    checks; no checks (the launch alone, for timing)."""
+    _ln_launch(x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y, eps,
+               x.get_device())
 
 
 def _layer_norm_fwd(x, gamma, beta, eps: float) -> torch.Tensor:
-    """K7-LN launch (plain version for CPU tensors)."""
+    """K7-LN launch (plain version for CPU tensors). The kernel takes x in
+    its own shape (no reshape or view per call), and the checks that pass
+    cost a few attribute reads: messages are built only on failure."""
     if not x.is_cuda:
         return layer_norm_ref(x, gamma, beta, eps)
-    _check_affine_args("K7-LN", x, gamma, beta)
     c = x.shape[-1]
-    x2 = x.contiguous().reshape(-1, c)
-    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
-    check_cuda_tensors("K7-LN", (x2, gamma, beta),
-                       {"x": _DTYPES, "gamma": _F32, "beta": _F32})
-    y = torch.empty_like(x2)
-    LN_KERNEL.launch(f"layer_norm_{_SUFFIX[x.dtype]}", "ppppiifp", ptr(x2),
-                     ptr(gamma), ptr(beta), ptr(y), x2.shape[0], c, eps,
-                     stream_of(x))
-    return y.reshape(x.shape)
+    dev = x.get_device()
+    xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    # the common case in one expression; anything else is normalized (or
+    # raises with its reason) below
+    if not (c % 8 == 0 and gamma.shape == (c,) and beta.shape == (c,)
+            and x.dtype in _LN_FN and gamma.dtype is _F32[0]
+            and beta.dtype is _F32[0] and x.is_contiguous()
+            and gamma.is_contiguous() and beta.is_contiguous()
+            and gamma.get_device() == dev and beta.get_device() == dev
+            and xp % 16 == 0 and gp % 16 == 0 and bp % 16 == 0):
+        _check_affine_args("K7-LN", x, gamma, beta)
+        x, gamma, beta = x.contiguous(), fp32_of(gamma), fp32_of(beta)
+        check_cuda_tensors("K7-LN", (x, gamma, beta), _NORM_DTYPES)
+        xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    y = torch.empty_like(x)
+    _ln_launch(x, xp, gp, bp, y, eps, dev)
+    return y
 
 
 def _gn_operands(name, x, gamma, beta, groups):
@@ -95,12 +127,11 @@ def _gn_operands(name, x, gamma, beta, groups):
     K7-GN statistics layout: (rows per block, partial-sum buffer)."""
     _check_affine_args(name, x, gamma, beta)
     n, c = x.shape[0], x.shape[-1]
-    check(x.ndim >= 3 and c % groups == 0 and groups <= 256,
-          f"{name}: x {tuple(x.shape)} with {groups} groups")
+    if not (x.ndim >= 3 and c % groups == 0 and groups <= 256):
+        check(False, f"{name}: x {tuple(x.shape)} with {groups} groups")
     x3 = x.contiguous().reshape(n, -1, c)
-    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
-    check_cuda_tensors(name, (x3, gamma, beta),
-                       {"x": _DTYPES, "gamma": _F32, "beta": _F32})
+    gamma, beta = fp32_of(gamma), fp32_of(beta)
+    check_cuda_tensors(name, (x3, gamma, beta), _NORM_DTYPES)
     m = x3.shape[1]
     rows = max(1, min(m, _GN_BLOCK_ELEMS // c))
     part = torch.empty((n, math.ceil(m / rows), groups, 2), dtype=torch.float32,

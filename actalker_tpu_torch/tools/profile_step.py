@@ -41,7 +41,7 @@ GROUPS = (
     ("K2-bwd attention backward", ("dkdv_kernel", "dq_kernel", "row_dot")),
     ("K3 frame attention", ("frame_attn_kernel",)),
     ("K4 GEGLU", ("gemm_tn_kernel",)),
-    ("K7-LN layer norm", ("layer_norm_kernel",)),
+    ("K7-LN layer norm", ("layer_norm_",)),
     ("K7-GN group norm", ("gn_stats_kernel", "gn_finalize_kernel",
                           "gn_apply_kernel")),
     ("K8 GN + SiLU + conv3x3", ("gn_silu_conv3x3_kernel",)),

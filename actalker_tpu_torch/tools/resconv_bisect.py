@@ -9,7 +9,7 @@ entry each, launched through ``ops.resconv.conv_launch``:
     noshift   only the dx = 0 taps (the dx = +-1 columns of the kernel zero)
     noaffine  y = conv3x3(silu(x)) + cb
     nosilu    y = conv3x3(x * a + b) + cb
-    mmonly    the operand gather writes zeros and reads no input: y = cb
+    mmonly    the halo is written as zeros and no input is read: y = cb
 
 Each variant is first held against a plain PyTorch version of its function
 at a small ragged shape, then timed (CUDA events, median of 10; the plain

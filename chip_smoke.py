@@ -20,7 +20,8 @@ Phases, one line each (any failure raises and exits non-zero):
      (median), the time of one PyTorch library call computing the same
      function where there is one, and the data-sheet bound (K1 also its
      special-function floor; K4 and K8 also a chain of library calls
-     computing their function, timed only); then K8's five
+     computing their function, timed only; K7-LN and K8 also their launch
+     alone, without the wrapper's other work); then K8's five
      bisect variants (``tools/resconv_bisect.py``) against their plain
      versions at a small shape, and timed at (56, 64, 64, 320 -> 320);
   4. UNet: one full-width bf16 forward (UNetConfig(), seeded weights) on a
@@ -552,14 +553,16 @@ def kernel_cases(torch, dev, gen):
                {"chain": lambda x=x, w1=w1, b1=b1.to(bf), w2=w2, b2=b2.to(bf):
                     geglu_chain(x, w1, b1, w2, b2)})
 
-    # the fused-norm configuration: K7-LN at the transformers' (B*F*HW, C),
-    # the res-16 SSM out_norm and the fp32 projection heads; K7-GN at the
-    # transformers' and temporal resnets' (N, M, C) and the VAE's 512 px
-    # images; K8 at the UNet's spatial resnets and the VAE's 512 px convs.
+    # the fused-norm configuration: K7-LN at the transformers' (B*F*HW, C)
+    # (res-64, res-32, res-16), the res-16 SSM out_norm and the fp32
+    # projection heads; K7-GN at the transformers' and temporal resnets'
+    # (N, M, C) and the VAE's 512 px images; K8 at the UNet's spatial
+    # resnets (res-64, res-32, res-16, res-8) and the VAE's 512 px convs.
     # Bounds: bytes once in and once out; K8 by its 2 * M * 9C * Co
     # tensor-core operations.
-    for m, c, dtype in ((56 * 4096, 320, bf), (56 * 256, 1280, bf),
-                        (56 * 256, 2560, bf), (56 * 32, 1024, torch.float32)):
+    for m, c, dtype in ((56 * 4096, 320, bf), (56 * 1024, 640, bf),
+                        (56 * 256, 1280, bf), (56 * 256, 2560, bf),
+                        (56 * 32, 1024, torch.float32)):
         x = rnd(m, c, dtype=dtype, scale=2.0) + 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         item = x.element_size()
@@ -568,7 +571,10 @@ def kernel_cases(torch, dev, gen):
                lambda x=x, g=g, b=b: norms.layer_norm_ref(x, g, b),
                lambda x=x, g=g.to(dtype), b=b.to(dtype), c=c:
                    F.layer_norm(x, (c,), g, b, 1e-5),
-               bound(2 * m * c * item + 8 * c, 8 * m * c, PEAK_FP32))
+               bound(2 * m * c * item + 8 * c, 8 * m * c, PEAK_FP32),
+               # K7-LN's launch alone, into an output made beforehand
+               {"alone": lambda x=x, g=g, b=b, y=torch.empty_like(x):
+                    norms.layer_norm_launch(x, g, b, y, 1e-5)})
     for n, m, c, eps in ((56, 4096, 320, 1e-6), (4, 14 * 4096, 320, 1e-5),
                          (14, 512 * 512, 128, 1e-6)):
         x = rnd(n, m, c, scale=2.0) - 0.5
@@ -581,8 +587,9 @@ def kernel_cases(torch, dev, gen):
                lambda xv=xv, g=g.to(bf), b=b.to(bf), eps=eps:
                    F.group_norm(xv, 32, g, b, eps),
                bound(2 * n * m * c * 2 + 8 * c, 10 * n * m * c, PEAK_FP32))
-    for n, hw, c, co in ((56, 64, 320, 320), (56, 16, 2560, 1280),
-                         (56, 8, 1280, 1280), (14, 512, 128, 128)):
+    for n, hw, c, co in ((56, 64, 320, 320), (56, 32, 640, 640),
+                         (56, 16, 2560, 1280), (56, 8, 1280, 1280),
+                         (14, 512, 128, 128)):
         x = rnd(n, hw, hw, c, scale=1.5) + 0.3
         g = 1.0 + rnd(c, dtype=torch.float32, scale=0.1)
         b = rnd(c, dtype=torch.float32, scale=0.5)

@@ -415,10 +415,19 @@ def test_frame_and_mlp_backward_launch_forward_kernels(dev):
 @pytest.mark.parametrize("m,c,dtype", [
     (300, 320, torch.bfloat16), (77, 960, torch.bfloat16),
     (5, 2560, torch.bfloat16), (129, 1024, torch.float32),
-    (64, 320, torch.float32)])
+    (64, 320, torch.float32), (1, 320, torch.bfloat16),
+    (1, 640, torch.bfloat16), (333, 640, torch.bfloat16),
+    (1, 1280, torch.bfloat16), (1001, 1280, torch.bfloat16),
+    (1, 2560, torch.bfloat16), (1, 1024, torch.float32),
+    (1, 72, torch.bfloat16), (131, 72, torch.bfloat16),
+    (37, 72, torch.float32)])
 def test_k7_layer_norm(dev, m, c, dtype):
-    """fp32 statistics and affine in both; bf16 rounds the output (tol
-    1e-3), fp32 differs in summation order only (tol 1e-5)."""
+    """The templated widths (C = 320 / 640 / 1280 / 2560 bf16, 1024 fp32:
+    rows held in registers, several rows to a warp at C = 320 / 640) and
+    the general kernel (C = 72, 960), one row and ragged row counts against
+    the rows of a block. fp32 statistics and affine in both; bf16 rounds
+    the output (tol 1e-3), fp32 differs in summation order only (tol
+    1e-5)."""
     x = (torch.randn(m, c, device=dev) * 2 + 0.5).to(dtype)
     g, b = torch.randn(c, device=dev), torch.randn(c, device=dev)
     n0 = norms.LN_KERNEL.launches
@@ -451,21 +460,39 @@ def test_k7_group_norm(dev, shape, dtype):
     assert _rel(a, a_r) < 1e-5 and _rel(bb, b_r) < 1e-5
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,c,co", [
+K8_SHAPES = [
     (2, 8, 8, 320, 320), (3, 16, 16, 960, 640), (1, 128, 16, 128, 256),
-    (5, 1, 1, 32, 16), (2, 9, 7, 40, 24)])
-def test_k8_gn_silu_conv3x3(dev, n, h, w, c, co):
-    """W = 8 and 16 (a tile spans images), a tall VAE-like image, one-pixel
-    images (all halo but the centre tap), ragged sizes. The activation is
-    rounded to bf16 in both; accumulation order can flip single roundings
-    (tol 5e-3). One K7-GN statistics launch and one K8 launch per call."""
-    gen = torch.Generator(device=dev).manual_seed(2)
+    (5, 1, 1, 32, 16), (2, 9, 7, 40, 24),
+    # C = 960 / 1920 (no multiple of 128), Co = 320 (no multiple of 256)
+    (2, 8, 8, 960, 320), (1, 8, 8, 1920, 640), (1, 8, 8, 2560, 1280),
+    (2, 4, 4, 320, 640),
+    # W = 512: a tile is part of a row (three disjoint halo windows); the
+    # halo's two modes on either side of W = 136 (one TMA box)
+    (1, 3, 512, 128, 128), (1, 5, 136, 64, 64), (1, 4, 137, 64, 64),
+    # N * H * W ragged against the 128-pixel tile, C below one chunk
+    (3, 7, 9, 64, 40)]
+
+
+def _k8_args(dev, n, h, w, c, co, seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     x = (rn(n, h, w, c) * 1.5 + 0.3).bfloat16()
-    g, b = 1 + 0.1 * rn(c), 0.5 * rn(c)          # SiLU(b) != 0 in the halo
+    g, b = 1 + 0.1 * rn(c), 0.5 + 0.5 * rn(c)    # SiLU(b) != 0 in the halo
     wt = (rn(co, c, 3, 3) * (9 * c) ** -0.5).bfloat16()
-    cb = 0.1 * rn(co)
+    return x, g, b, wt, 0.1 * rn(co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co", K8_SHAPES)
+def test_k8_gn_silu_conv3x3(dev, n, h, w, c, co):
+    """W = 8 and 16 (a tile spans images), whole 8 x 8 images, a tall
+    VAE-like image, one-pixel images (all halo but the centre tap), W = 512
+    (part of a row), ragged sizes, C and Co off the tile widths. beta is
+    shifted so that silu(b) is far from 0: a halo filled with silu(b)
+    instead of the activated tensor's zeros fails. The activation is
+    rounded to bf16 in both; accumulation order can flip single roundings
+    (tol 5e-3). One K7-GN statistics launch and one K8 launch per call."""
+    x, g, b, wt, cb = _k8_args(dev, n, h, w, c, co)
     groups = 32 if c % 32 == 0 else 8
     n7, n8 = norms.GN_KERNEL.launches, resconv.KERNEL.launches
     y = resconv.gn_silu_conv3x3(x, g, b, groups, 1e-5, wt, cb)
@@ -474,6 +501,55 @@ def test_k8_gn_silu_conv3x3(dev, n, h, w, c, co):
     assert y.shape == (n, h, w, co) and y.dtype == torch.bfloat16
     ref = resconv.gn_silu_conv3x3_ref(x, g, b, groups, 1e-5, wt, cb)
     assert _rel(y, ref) < 5e-3, _rel(y, ref)
+
+
+@pytest.mark.cuda
+def test_k8_weight_layout_rebuilt_after_an_update(dev):
+    """K8 reads a cached (Co, 9 C) layout of w; an in-place update of w
+    moves its version, so the next call re-lays it out and the output
+    follows the new weights."""
+    x, g, b, w, cb = _k8_args(dev, 2, 8, 8, 64, 64)
+    y0 = resconv.gn_silu_conv3x3(x, g, b, 32, 1e-5, w, cb)
+    assert torch.equal(y0, resconv.gn_silu_conv3x3(x, g, b, 32, 1e-5, w, cb))
+    w.add_(0.05)
+    y1 = resconv.gn_silu_conv3x3(x, g, b, 32, 1e-5, w, cb)
+    assert not torch.equal(y0, y1)
+    assert _rel(y1, resconv.gn_silu_conv3x3_ref(x, g, b, 32, 1e-5, w, cb)) < 5e-3
+
+
+@pytest.mark.cuda
+def test_k8_from_a_fresh_thread(dev):
+    """K8 encodes a TMA tensor map of the weights, which wants a current
+    context: a thread that has made no CUDA call yet gives the same bits."""
+    import threading
+
+    args = _k8_args(dev, 2, 16, 16, 128, 160)
+    want = resconv.gn_silu_conv3x3(args[0], args[1], args[2], 32, 1e-5, *args[3:])
+    got = {}
+
+    def run():
+        got["y"] = resconv.gn_silu_conv3x3(args[0], args[1], args[2], 32, 1e-5,
+                                           *args[3:])
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert torch.equal(got["y"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co", [(56, 64, 64, 320, 320),
+                                        (14, 512, 512, 512, 512),
+                                        (2, 9, 7, 40, 24)])
+def test_k8_plan_matches_the_kernel(dev, n, h, w, c, co):
+    """The wrapper's plan sizes shared memory as the kernel lays it out."""
+    import ctypes
+
+    plan = resconv.conv_plan(n, h, w, c, co)
+    f = resconv.KERNEL.build().gn_silu_conv3x3_smem
+    f.argtypes, f.restype = [ctypes.c_int] * 3, ctypes.c_int
+    assert f(plan["bn"], plan["seg"], plan["stages"]) == plan["smem"]
 
 
 @pytest.mark.cuda
@@ -588,13 +664,17 @@ def test_k5_k6_gradients(dev, rev):
 
 
 @pytest.mark.cuda
-def test_k8_bisect_variants(dev):
+@pytest.mark.parametrize("shape", [(2, 9, 7, 40, 24), (2, 16, 16, 320, 320)])
+def test_k8_bisect_variants(dev, shape):
     """Each stage knock-out of K8 against its plain version (the bisect
-    tool's check, tol 5e-3 as K8's), one K8-library launch each."""
+    tool's check, tol 5e-3 as K8's), one K8-library launch each: the tool's
+    ragged check shape, and 16 x 16 images at C = Co = 320 (tiles of eight
+    rows, two 160-wide Co tiles, five channel chunks)."""
     from actalker_tpu_torch.tools import resconv_bisect
 
     n0 = resconv.KERNEL.launches
-    rows = resconv_bisect.check_variants(torch.Generator(device=dev).manual_seed(4))
+    rows = resconv_bisect.check_variants(torch.Generator(device=dev).manual_seed(4),
+                                         shape)
     assert resconv.KERNEL.launches == n0 + len(resconv.VARIANTS)
     assert [r["variant"] for r in rows] == list(resconv.VARIANTS)
     assert all(r["ok"] for r in rows), rows
