@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads, wgmma descriptors and products, register hand-over
-// between warpgroups, and the host-side encoding of TMA tensor maps.
+// between warpgroups, ldmatrix and cp.async copies, the SFU's exp2 / log2,
+// and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are 64 bf16 wide (128-byte rows) and written by TMA
 // with the 128-byte swizzle, 1024-byte aligned (one swizzle atom is 8 rows
@@ -135,6 +136,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(x) on the SFU (lg2.approx)
+__device__ __forceinline__ float lg2_fast(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -364,6 +372,32 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// the same with each 8 x 8 matrix transposed: as the k16n8 B fragment of
+// mma.sync when the shared rows run along k
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// ---- cp.async -------------------------------------------------------------
+
+// 16-byte global -> shared copy; zero-fills the 16 bytes when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of this thread's committed groups are in flight
+template <int kPending> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // ---- host: TMA tensor maps ------------------------------------------------

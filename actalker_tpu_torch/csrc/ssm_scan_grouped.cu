@@ -92,25 +92,6 @@ __host__ __device__ inline Geo geometry(int rank, int esize) {
   return g;
 }
 
-// 16-byte global -> shared copy; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
-
-__device__ __forceinline__ float lg2_fast(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <bool kFast> __device__ __forceinline__ float exp2_of(float x) {
   if constexpr (kFast) return hop::exp2_fast(x);
   else return exp2f(x);
@@ -120,7 +101,7 @@ template <bool kFast> __device__ __forceinline__ float exp2_of(float x) {
 template <bool kFast> __device__ __forceinline__ float softplus(float x) {
   if constexpr (kFast) {
     const float e = hop::exp2_fast(x * kLog2e);
-    return x > 20.f ? x : x < -15.f ? e : kLn2 * lg2_fast(1.f + e);
+    return x > 20.f ? x : x < -15.f ? e : kLn2 * hop::lg2_fast(1.f + e);
   } else {
     return x > 20.f ? x : log1pf(expf(x));
   }
@@ -183,7 +164,7 @@ __device__ __forceinline__ void scan_group(
       if (j < geo.nraw) {
         const size_t row = (size_t)(tok < L ? tok : 0) * B + b;
         const int lane0 = j < geo.nmain ? j * geo.ve : kLanes - geo.ve;
-        cp_async16(slab_dst + (uint32_t)(t * geo.stride + j) * 16,
+        hop::cp_async16(slab_dst + (uint32_t)(t * geo.stride + j) * 16,
                    slab + (row * G + g) * kLanes + lane0, tok < L);
       }
     }
@@ -192,26 +173,26 @@ __device__ __forceinline__ void scan_group(
       const int tok = c * kChunk + t, ch = d0 + v * geo.ve;
       const bool valid = tok < L && ch < Dp;
       const size_t row = (size_t)(tok < L ? tok : 0) * B + b;
-      cp_async16(u_dst + (uint32_t)i * 16,
+      hop::cp_async16(u_dst + (uint32_t)i * 16,
                  u + (row * nbr + g / 2) * Dp + (valid ? ch : 0), valid);
     }
   };
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nchunks) stage(kRev ? nchunks - 1 - s : s, s);
-    cp_async_commit();
+    hop::cp_async_commit();
   }
 
   for (int ci = 0; ci < nchunks; ++ci) {
     const int c = kRev ? nchunks - 1 - ci : ci;
     const int t0 = c * kChunk;
-    cp_async_wait_all_but_newest();
+    hop::cp_async_wait<kStages - 2>();
     // chunk ci has landed for every thread's copies, and chunk ci-1 (its
     // fp32 rows and ring slot) is fully consumed
     __syncthreads();
     const int cn = ci + kStages - 1;
     if (cn < nchunks) stage(kRev ? nchunks - 1 - cn : cn, cn % kStages);
-    cp_async_commit();
+    hop::cp_async_commit();
 
     // the read lanes to fp32: dts transposed to rank-major rows, B|C|mask
     // token-major

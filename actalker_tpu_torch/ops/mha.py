@@ -179,6 +179,28 @@ def frame_attention_tokens_xla(q, k, v, num_frames: int, heads: int,
     return o.reshape(bf, s, c)
 
 
+# K3's geometry (csrc/frame_attention.cu): tokens (one a warp) per block
+# of the tensor-core kernel, and the most frames it takes; past that a
+# plain kernel with 8 lanes per (token, head, query frame) of 256-thread
+# blocks computes the same function
+FRAME_WARPS, FRAME_MAX_F = 4, 32
+
+
+def frame_plan(bf: int, num_frames: int, s: int, heads: int) -> dict:
+    """K3's launch plan for q/k/v of (B*F, S, heads * 64): ``m_tiles`` of 16
+    query frames (0: the plain kernel), the grid, threads per block and the
+    dynamic shared bytes (every warp stages its token's F query, key and
+    value rows of 128 bytes)."""
+    b = bf // num_frames
+    if num_frames <= FRAME_MAX_F:
+        return {"m_tiles": -(-num_frames // 16),
+                "grid": (-(-s // FRAME_WARPS), heads, b),
+                "threads": 32 * FRAME_WARPS,
+                "smem": FRAME_WARPS * 3 * num_frames * 2 * HEAD_DIM}
+    return {"m_tiles": 0, "grid": (-(-bf * s * heads * 8 // 256), 1, 1),
+            "threads": 256, "smem": 0}
+
+
 def _frame_fwd(q, k, v, num_frames: int, heads: int,
                scale: Optional[float] = None) -> torch.Tensor:
     """K3 launch (plain version for CPU tensors)."""
@@ -188,12 +210,15 @@ def _frame_fwd(q, k, v, num_frames: int, heads: int,
     check(k.shape == q.shape and v.shape == q.shape, "K3: q/k/v shapes differ")
     check(bf % num_frames == 0, f"K3: {bf} rows not a multiple of F")
     check(c == heads * HEAD_DIM, f"K3: C={c} must be heads*{HEAD_DIM}")
+    check(bf // num_frames < 65536 and heads < 65536,
+          "K3: batch and heads must each be below 65536 (grid limits)")
     check_cuda_tensors("K3", (q, k, v), {"q": _BF16, "k": _BF16, "v": _BF16})
     sc = HEAD_DIM ** -0.5 if scale is None else scale
+    plan = frame_plan(bf, num_frames, s, heads)
     o = torch.empty_like(q)
-    FRAME_KERNEL.launch("frame_attention_bf16", "ppppiiiifp", ptr(q), ptr(k),
+    FRAME_KERNEL.launch("frame_attention_bf16", "ppppiiiifiip", ptr(q), ptr(k),
                         ptr(v), ptr(o), bf // num_frames, num_frames, s, heads,
-                        sc, stream_of(q))
+                        sc, plan["m_tiles"], plan["smem"], stream_of(q))
     return o
 
 

@@ -287,10 +287,61 @@ def ssm_scan_arranged_grad_ref(u, dtr, bc, A, D, bias, dy, reverse: bool,
             dA.to(A.dtype), dD.to(D.dtype), dbias.to(bias.dtype))
 
 
+# K6's geometry (csrc/ssm_scan_bwd.cu): tokens per sub-chunk (the
+# checkpoint spacing), warps and channels per adjoint block (two lanes a
+# channel), channels per replay block
+BWD_CHUNK, BWD_WARPS = 8, 4
+BWD_BLOCK, BWD_REPLAY_BLOCK = 16 * BWD_WARPS, 128
+# segments are at least this long; more of them only until the adjoint has
+# about this many blocks
+BWD_MIN_SEGMENT, BWD_TARGET_BLOCKS = 128, 4096
+
+
+def bwd_plan(lp: int, bp: int, dp: int, itemsize: int) -> dict:
+    """K6's launch plan for an arranged scan of L = ``lp`` tokens, ``bp``
+    rows and ``dp`` channels of ``itemsize``-byte activations.
+
+    The kernel takes channels in multiples of 8 (16-byte copies), so ``dp``
+    is padded to ``dpp``. L is cut into ``nseg`` segments of ``seg_len``
+    tokens (a multiple of the sub-chunk), enough for about
+    ``BWD_TARGET_BLOCKS`` adjoint blocks; ``smem`` holds the replay's and
+    the adjoint's dynamic shared bytes, and ``buffers`` the shapes of the
+    fp32 scratch and partial-sum buffers the wrapper allocates."""
+    n, t = D_STATE, BWD_CHUNK
+    dpp = _round_up(dp, 8)
+    nblk = -(-dpp // BWD_BLOCK)
+    nseg_want = max(1, -(-BWD_TARGET_BLOCKS // (nblk * bp)))
+    seg_len = max(BWD_MIN_SEGMENT, _round_up(-(-lp // nseg_want), t))
+    nseg, nsub = -(-lp // seg_len), -(-lp // t)
+
+    def slot(ch, checkpoint):
+        rows = 2 * t * ch * itemsize + t * ch * 4 + t * 2 * n * itemsize
+        return rows + ((n + 1) * ch * 4 if checkpoint else 0)
+
+    adjoint_floats = (t * 2 * n + 2 * t * BWD_BLOCK + t * n * BWD_BLOCK
+                      + t * BWD_WARPS * 2 * n)
+    return {
+        "dpp": dpp, "seg_len": seg_len, "nseg": nseg, "nsub": nsub,
+        "grid": {"replay": (-(-dpp // BWD_REPLAY_BLOCK), nseg, bp),
+                 "join": (-(-bp * n * dpp // 256),),
+                 "adjoint": (nblk, nseg, bp)},
+        "smem": {"replay": 2 * slot(BWD_REPLAY_BLOCK, False) + t * 2 * n * 4,
+                 "adjoint": 2 * slot(BWD_BLOCK, True) + adjoint_floats * 4},
+        "buffers": {"ck_h": (nsub, bp, n, dpp), "ck_cum": (nsub, bp, dpp),
+                    "seg_h": (nseg, bp, n, dpp), "seg_e": (nseg, bp, n, dpp),
+                    "seg_cum": (nseg, bp, dpp),
+                    "dbc_part": (lp, bp, nblk, 2 * n),
+                    "da_part": (nseg, bp, dpp, n), "dd_part": (nseg, bp, dpp),
+                    "db_part": (nseg, bp, dpp)},
+    }
+
+
 def ssm_scan_arranged_grad(u, dtr, bc, A, D, bias, dy, reverse: bool):
     """Adjoint of one arranged scan (K6). CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise. See
-    ``ssm_scan_arranged_grad_ref`` for shapes and outputs."""
+    ``ssm_scan_arranged_grad_ref`` for shapes and outputs; the launch plan is
+    ``bwd_plan``'s (channels padded to a multiple of 8 with zeros, which
+    leaves every cotangent of the real channels as it is)."""
     if not u.is_cuda:
         return ssm_scan_arranged_grad_ref(u, dtr, bc, A, D, bias, dy, reverse)
     lp, bp, dp = u.shape
@@ -299,8 +350,8 @@ def ssm_scan_arranged_grad(u, dtr, bc, A, D, bias, dy, reverse: bool):
     check(n == D_STATE, f"K6: d_state {n} must be {D_STATE}")
     check(tuple(dtr.shape) == (lp, bp, dp) and tuple(dy.shape) == (lp, bp, dp),
           "K6: dtr / dy must match u")
-    check(tuple(bc.shape) == (lp, bp, nb) and nb >= 2 * n,
-          f"K6: bc {tuple(bc.shape)} must be (L, B, NB >= 2N)")
+    check(tuple(bc.shape) == (lp, bp, nb) and nb >= 2 * n and nb % 8 == 0,
+          f"K6: bc {tuple(bc.shape)} must be (L, B, NB >= 2N), NB % 8 == 0")
     check(tuple(A.shape) == (dp, n) and tuple(D.shape) == (dp,)
           and tuple(bias.shape) == (dp,), "K6: A (Dp, N), D / bias (Dp,)")
     act = (torch.bfloat16, torch.float32)
@@ -310,24 +361,31 @@ def ssm_scan_arranged_grad(u, dtr, bc, A, D, bias, dy, reverse: bool):
                         "bias": f32, "dy": act})
     check(bc.dtype == u.dtype and dy.dtype == u.dtype,
           "K6: bc and dy dtype must match u")
-    nchunk = -(-lp // BWD_KERNEL.constant("ssm_scan_bwd_chunk"))
-    nwarp = -(-dp // 32)
+    plan = bwd_plan(lp, bp, dp, u.element_size())
+    dpp = plan["dpp"]
+    if dpp != dp:
+        u, dtr, dy = (F.pad(x, (0, dpp - dp)) for x in (u, dtr, dy))
+        A = F.pad(A, (0, 0, 0, dpp - dp))
+        D, bias = F.pad(D, (0, dpp - dp)), F.pad(bias, (0, dpp - dp))
     dev = u.device
-    f = dict(dtype=torch.float32, device=dev)
-    bnd = torch.empty((nchunk, bp, n, dp), **f)          # states entering chunks
-    du = torch.empty((lp, bp, dp), dtype=u.dtype, device=dev)
-    ddt = torch.empty((lp, bp, dp), **f)
-    dbc_part = torch.empty((lp, bp, nwarp, 2 * n), **f)  # per-warp channel sums
-    da_part = torch.empty((bp, dp, n), **f)              # per-row token sums
-    dd_part = torch.empty((bp, dp), **f)
+    buf = {k: torch.empty(shape, dtype=torch.float32, device=dev)
+           for k, shape in plan["buffers"].items()}
+    du = torch.empty((lp, bp, dpp), dtype=u.dtype, device=dev)
+    ddt = torch.empty((lp, bp, dpp), dtype=torch.float32, device=dev)
     fn = "ssm_scan_bwd_bf16" if u.dtype == torch.bfloat16 else "ssm_scan_bwd_f32"
     BWD_KERNEL.launch(
-        fn, "pppppppppppppiiiiip", ptr(u), ptr(dtr), ptr(bc), ptr(A), ptr(D),
-        ptr(bias), ptr(dy), ptr(bnd), ptr(du), ptr(ddt), ptr(dbc_part),
-        ptr(da_part), ptr(dd_part), lp, bp, dp, nb, int(reverse), stream_of(u))
-    dbc = torch.zeros((lp, bp, nb), dtype=bc.dtype, device=dev)
-    dbc[:, :, :2 * n] = dbc_part.sum(2)
-    return (du, ddt, dbc, da_part.sum(0), dd_part.sum(0), ddt.sum((0, 1)))
+        fn, "p" * 18 + "i" * 8 + "p", ptr(u), ptr(dtr), ptr(bc), ptr(A),
+        ptr(D), ptr(bias), ptr(dy), ptr(buf["ck_h"]), ptr(buf["ck_cum"]),
+        ptr(buf["seg_h"]), ptr(buf["seg_e"]), ptr(buf["seg_cum"]), ptr(du),
+        ptr(ddt), ptr(buf["dbc_part"]), ptr(buf["da_part"]),
+        ptr(buf["dd_part"]), ptr(buf["db_part"]), lp, bp, dpp, nb,
+        int(reverse), plan["seg_len"], plan["smem"]["replay"],
+        plan["smem"]["adjoint"], stream_of(u))
+    dbc = buf["dbc_part"].sum(2).to(bc.dtype)
+    if nb != 2 * n:
+        dbc = F.pad(dbc, (0, nb - 2 * n))
+    return (du[..., :dp], ddt[..., :dp], dbc, buf["da_part"].sum((0, 1))[:dp],
+            buf["dd_part"].sum((0, 1))[:dp], buf["db_part"].sum((0, 1))[:dp])
 
 
 class SsmScanGroupedFn(torch.autograd.Function):

@@ -36,10 +36,10 @@ import torch
 GROUPS = (
     ("K1 grouped scan", ("ssm_grouped_kernel",)),
     ("K5 scan", ("ssm_scan_kernel",)),
-    ("K6 scan adjoint", ("boundary_kernel", "adjoint_kernel")),
+    ("K6 scan adjoint", ("ssm_bwd_",)),
     ("K2 attention", ("mha_fwd_kernel",)),
     ("K2-bwd attention backward", ("dkdv_kernel", "dq_kernel", "row_dot")),
-    ("K3 frame attention", ("frame_attn_kernel",)),
+    ("K3 frame attention", ("frame_attn_",)),
     ("K4 GEGLU", ("gemm_tn_kernel",)),
     ("K7-LN layer norm", ("layer_norm_",)),
     ("K7-GN group norm", ("gn_stats_kernel", "gn_finalize_kernel",

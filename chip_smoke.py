@@ -18,8 +18,8 @@ Phases, one line each (any failure raises and exits non-zero):
      the shapes the clip, training and lineage paths give it, same inputs,
      fp32 accumulation in the plain version, with CUDA-event times
      (median), the time of one PyTorch library call computing the same
-     function where there is one, and the data-sheet bound (K1 also its
-     special-function floor; K4 and K8 also a chain of library calls
+     function where there is one, and the data-sheet bound (K1 and K6 also
+     their special-function floor; K4 and K8 also a chain of library calls
      computing their function, timed only; K7-LN and K8 also their launch
      alone, without the wrapper's other work); then K8's five
      bisect variants (``tools/resconv_bisect.py``) against their plain
@@ -421,14 +421,19 @@ def kernel_cases(torch, dev, gen):
         # state) and the adjoint (~16 ops per state), softplus / sigmoid
         ops = l * 25 * dp * (16 * (4 + 16) + 10)
         nbytes = l * 25 * (dp * (2 + 4 + 2 + 2 + 4) + 2 * 32 * 2)
+        # the special-function floor: two rounds of 16 exps (the forward
+        # states, the adjoint's decays), a softplus twice and a sigmoid per
+        # (token, row, channel): 38 exp2 / log2 / rcp, not part of the bound
+        floor = sfu_floor_ms(l * 25 * dp * 38)
         return (grads, plain_grads, (lambda: ss.ssm_scan_arranged_grad(*one),
                                      lambda: ss.ssm_scan_arranged_grad_ref(*one)),
-                None, bound(nbytes, ops, PEAK_FP32))
+                None, bound(nbytes, ops, PEAK_FP32), floor)
 
-    for dp, hw in ((640, 64), (2560, 16)):
-        grads, plain_grads, timing, lib, bnd = k6(dp, hw)
+    # the training groups at res-64, res-32 and res-16
+    for dp, hw in ((640, 64), (1280, 32), (2560, 16)):
+        grads, plain_grads, timing, lib, bnd, floor = k6(dp, hw)
         yield ("ssm_scan_bwd", f"Dp={dp} L={hw * hw}+33 Bp=25 G=4 (train)",
-               grads, plain_grads, lib, bnd, {"timing": timing})
+               grads, plain_grads, lib, bnd, {"timing": timing, "floor": floor})
 
     def k5(lp, bp, dp, dtype):
         # one direction of a lineage scan unit: the 2N = 32 B|C lanes of
@@ -519,17 +524,23 @@ def kernel_cases(torch, dev, gen):
                lambda oh=oh, ins=(qh, kh, vh), doh=doh:
                    torch.autograd.grad(oh, ins, doh, retain_graph=True),
                bound(8 * b * s * c * 2 + b * h * s * 4, ops, PEAK_BF16))
-    for f in (14, 25):
-        q, k, v = (rnd(4 * f, 4096, 320) for _ in range(3))
+    # K3: the 14-frame window-step at res-64 / -32 / -16 / -8 (4 CFG x 14
+    # frames), 4 CFG x 25 frames at res-64, training's 25 frames, and the
+    # reference's default 576 px window (4 CFG x 25 frames, S = 72^2)
+    for b, f, s, h in ((4, 14, 4096, 5), (4, 25, 4096, 5), (4, 14, 1024, 10),
+                       (4, 14, 256, 20), (4, 14, 64, 20), (1, 25, 4096, 5),
+                       (4, 25, 5184, 5)):
+        c = 64 * h
+        q, k, v = (rnd(b * f, s, c) for _ in range(3))
         # SDPA over the frame axis: (B*S, H, F, d), laid out beforehand
-        qf, kf, vf = (x.view(4, f, 4096, 5, 64).permute(0, 2, 3, 1, 4)
-                      .reshape(4 * 4096, 5, f, 64) for x in (q, k, v))
-        ops = 4 * 4 * 4096 * 5 * f * f * 64
-        yield ("frame_attention", f"B*F={4 * f} F={f} S=4096 C=320 H=5",
-               lambda q=q, k=k, v=v, f=f: mha.frame_attention_tokens(q, k, v, f, 5),
-               lambda q=q, k=k, v=v, f=f: mha.frame_attention_tokens_ref(q, k, v, f, 5),
+        qf, kf, vf = (x.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
+                      .reshape(b * s, h, f, 64) for x in (q, k, v))
+        ops = 4 * b * s * h * f * f * 64
+        yield ("frame_attention", f"B*F={b * f} F={f} S={s} C={c} H={h}",
+               lambda q=q, k=k, v=v, f=f, h=h: mha.frame_attention_tokens(q, k, v, f, h),
+               lambda q=q, k=k, v=v, f=f, h=h: mha.frame_attention_tokens_ref(q, k, v, f, h),
                lambda qf=qf, kf=kf, vf=vf: F.scaled_dot_product_attention(qf, kf, vf),
-               bound(4 * 4 * f * 4096 * 320 * 2, ops, PEAK_BF16))
+               bound(4 * b * f * s * c * 2, ops, PEAK_BF16))
     def geglu_chain(x, w1, b1, w2, b2):
         # the library chain: F.linear -> fp32 gate -> F.linear, bf16 products
         inner = w2.shape[1]

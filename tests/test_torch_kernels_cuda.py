@@ -156,6 +156,49 @@ def test_k3_frame_attention(dev, f, s, h):
     assert _rel(o, mha.frame_attention_tokens_ref(q, k, v, f, h)) < 1e-3
 
 
+# K3 at its edges: F = 1, the window-step's 14, training's 25 (B*F = 25)
+# and the reference's default window (B*F = 100), F = 32 (the last on the
+# tensor cores) and F = 40 past it; S = 17, 81 (576 px res-8), 5184 (576
+# px res-72); H = 20
+K3_SHAPES = [(3, 1, 17, 2), (1, 14, 81, 5), (4, 14, 17, 20), (1, 25, 5184, 5),
+             (4, 25, 81, 5), (4, 25, 17, 20), (2, 32, 81, 5), (1, 40, 17, 2),
+             (2, 17, 33, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,s,h", K3_SHAPES)
+def test_k3_frame_attention_shapes(dev, b, f, s, h):
+    """fp32 softmax and P (bf16 hi + lo) in the kernel, fp32 throughout in
+    the plain version; the output is rounded to bf16 (tol 1e-3)."""
+    gen = torch.Generator(device=dev).manual_seed(f * 100 + s)
+    q, k, v = (torch.randn(b * f, s, 64 * h, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    n0 = mha.FRAME_KERNEL.launches
+    o = mha.frame_attention_tokens(q, k, v, f, h)
+    assert mha.FRAME_KERNEL.launches == n0 + 1
+    assert torch.isfinite(o.float()).all()
+    assert _rel(o, mha.frame_attention_tokens_ref(q, k, v, f, h)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_k3_from_a_fresh_thread(dev):
+    """A thread that has made no CUDA call yet gives the same bits."""
+    import threading
+
+    q, k, v = (torch.randn(50, 81, 320, device=dev).bfloat16() for _ in range(3))
+    want = mha.frame_attention_tokens(q, k, v, 25, 5)
+    got = {}
+
+    def run():
+        got["o"] = mha.frame_attention_tokens(q, k, v, 25, 5)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert torch.equal(got["o"], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c,cout", [(300, 64, 64), (129, 40, 18), (5, 320, 320)])
 def test_k4_geglu_mlp(dev, m, c, cout):
@@ -278,6 +321,99 @@ def test_k6_scan_adjoint(dev, rev, dtype, tol):
     for name, a, b in zip("du ddt dbc dA dD dbias".split(), got, want):
         assert torch.isfinite(a.float()).all(), name
         assert _rel(a, b) < tol, (name, _rel(a, b))
+
+
+# K6 at its edges: L = 1, around one 8-token sub-chunk and one or two
+# 128-token segments (+-1), Dp = 200 (no multiple of the 64-channel block)
+# and 2560, Bp = 1 and 56
+K6_SHAPES = [(1, 1, 200), (7, 2, 200), (8, 1, 200), (9, 56, 200),
+             (127, 2, 200), (128, 1, 2560), (129, 3, 200), (255, 1, 200),
+             (257, 56, 200), (300, 2, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("lp,bp,dp", K6_SHAPES)
+def test_k6_scan_adjoint_shapes(dev, lp, bp, dp, dtype, tol, rev):
+    """As ``test_k6_scan_adjoint`` (same tolerances and reasons), at the
+    sub-chunk and segment edges, ~30% of the rows masked. At L = 1 no state
+    precedes the token, so dA is exactly zero in both."""
+    args = _arranged(dev, dtype, lp=lp, bp=bp, dp=dp, rev=rev)
+    n0 = ss.BWD_KERNEL.launches
+    got = ss.ssm_scan_arranged_grad(*args)
+    assert ss.BWD_KERNEL.launches == n0 + 1
+    want = ss.ssm_scan_arranged_grad_ref(*args)
+    for name, a, b in zip("du ddt dbc dA dD dbias".split(), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        if b.any():
+            assert _rel(a, b) < tol, (name, _rel(a, b))
+        else:
+            assert not a.any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("masked", [0.0, 1.0])
+def test_k6_masked_rows(dev, masked, dtype, tol, rev):
+    """No row masked, and every row masked: then every step is an exact
+    identity (delta 0, sigmoid 0), so ddt, dB | dC, dA and dbias are exactly
+    zero and du = D dy; nothing is NaN. Two segments of 128 tokens."""
+    args = list(_arranged(dev, dtype, lp=200, bp=3, dp=64, rev=rev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args[1] = (torch.full_like(args[1], -1e9) if masked
+               else 0.5 * torch.randn(args[1].shape, generator=gen, device=dev))
+    got = ss.ssm_scan_arranged_grad(*args)
+    want = ss.ssm_scan_arranged_grad_ref(*args)
+    for name, a, b in zip("du ddt dbc dA dD dbias".split(), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        if masked and name in ("ddt", "dbc", "dA", "dbias"):
+            assert not a.any(), name
+        else:
+            assert _rel(a, b) < tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_k6_from_a_fresh_thread(dev):
+    """A thread that has made no CUDA call yet gives the same bits (K6 sums
+    in a fixed order: no atomics)."""
+    import threading
+
+    args = _arranged(dev, torch.bfloat16, lp=300, bp=2, dp=200, rev=True)
+    want = ss.ssm_scan_arranged_grad(*args)
+    got = {}
+
+    def run():
+        got["g"] = ss.ssm_scan_arranged_grad(*args)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert all(torch.equal(a, b) for a, b in zip(got["g"], want))
+
+
+@pytest.mark.cuda
+def test_k3_k6_refuse_a_plan_that_disagrees(dev):
+    """The C entries check the wrappers' plans: K6's sub-chunk length is
+    the plan's, and a launch with another shared-memory size or m-tile
+    count is refused (it raises, it does not run)."""
+    assert ss.BWD_KERNEL.constant("ssm_scan_bwd_chunk") == ss.BWD_CHUNK
+    q = torch.zeros(25, 8, 64, device=dev).bfloat16()
+    plan = mha.frame_plan(25, 25, 8, 1)
+    with pytest.raises(RuntimeError):
+        mha.FRAME_KERNEL.launch(
+            "frame_attention_bf16", "ppppiiiifiip", q.data_ptr(), q.data_ptr(),
+            q.data_ptr(), q.data_ptr(), 1, 25, 8, 1, 0.125, plan["m_tiles"],
+            plan["smem"] + 16, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError):
+        mha.FRAME_KERNEL.launch(
+            "frame_attention_bf16", "ppppiiiifiip", q.data_ptr(), q.data_ptr(),
+            q.data_ptr(), q.data_ptr(), 1, 25, 8, 1, 0.125, 1, plan["smem"],
+            torch.cuda.current_stream().cuda_stream)
 
 
 @pytest.mark.cuda
