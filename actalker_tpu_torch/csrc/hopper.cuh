@@ -453,4 +453,27 @@ inline int token_map(CUtensorMap* map, const void* base, int B, int S, int C,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of a 3-d tensor of `type` with dims[0] contiguous (byte strides of
+// dims 1 and 2 in `strides`), boxes of box[0..2] elements, no swizzle:
+// a box lands in shared memory as dense rows of box[0] elements, and its
+// parts past the tensor read zeros. Returns a cudaError_t value.
+inline int tile_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                       const unsigned long long dims[3],
+                       const unsigned long long strides[2], const unsigned box[3]) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t s[2] = {strides[0], strides[1]};
+  const cuuint32_t b[3] = {box[0], box[1], box[2]};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  CUresult r = CUDA_ERROR_INVALID_CONTEXT;
+  for (int tries = 0; tries < 2 && r == CUDA_ERROR_INVALID_CONTEXT; ++tries) {
+    if (tries) cudaFree(nullptr);   // a fresh thread: bind the runtime's context
+    r = fn(map, type, 3, const_cast<void*>(base), d, s, b, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace hop

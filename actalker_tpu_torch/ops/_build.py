@@ -170,7 +170,7 @@ def stream_of(t) -> int:
     binding's direct getter: no Stream object is built per launch)."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(cond: bool, msg: str) -> None:
@@ -178,20 +178,32 @@ def check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def cuda_tensors_ok(tensors: Sequence, dtypes: Dict[str, tuple]) -> bool:
+    """Whether every tensor is on the card of the first, of one of its
+    ``dtypes`` entry's dtypes (in order), contiguous and 16-byte aligned
+    (the kernels read rows with 16-byte vector loads): a few attribute
+    reads a tensor, so a wrapper takes its operands as given when this
+    holds, and normalizes them (or raises, ``check_cuda_tensors``) when
+    not. The one place these conditions are written."""
+    dev = tensors[0].get_device()
+    if dev < 0:
+        return False
+    for t, allowed in zip(tensors, dtypes.values()):
+        if not (t.get_device() == dev and t.dtype in allowed
+                and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            return False
+    return True
+
+
 def check_cuda_tensors(name: str, tensors: Sequence, dtypes: Dict[str, tuple]
                        ) -> None:
-    """Device / dtype / contiguity / 16-byte alignment checks shared by the
-    wrappers (the kernels read rows with 16-byte vector loads). The message
-    is built only when a check fails: on the launch path the checks cost a
-    few attribute reads per tensor."""
-    dev = tensors[0].device
-    for key, t in zip(dtypes, tensors):
-        if not (t.is_cuda and t.dtype in dtypes[key] and t.is_contiguous()
-                and t.data_ptr() % 16 == 0 and t.device == dev):
-            check(t.is_cuda, f"{name}: {key} must be a CUDA tensor")
-            check(t.dtype in dtypes[key],
-                  f"{name}: {key} dtype {t.dtype} not in {dtypes[key]}")
-            check(t.is_contiguous(), f"{name}: {key} must be contiguous")
-            check(t.data_ptr() % 16 == 0,
-                  f"{name}: {key} must be 16-byte aligned")
-            check(False, f"{name}: all tensors must be on {dev}")
+    """``cuda_tensors_ok``, or a ValueError naming the first tensor and
+    condition that fails (the message is built only on failure)."""
+    if cuda_tensors_ok(tensors, dtypes):
+        return
+    for t, (key, allowed) in zip(tensors, dtypes.items()):
+        check(t.is_cuda, f"{name}: {key} must be a CUDA tensor")
+        check(t.dtype in allowed, f"{name}: {key} dtype {t.dtype} not in {allowed}")
+        check(t.is_contiguous(), f"{name}: {key} must be contiguous")
+        check(t.data_ptr() % 16 == 0, f"{name}: {key} must be 16-byte aligned")
+    check(False, f"{name}: all tensors must be on {tensors[0].device}")

@@ -29,11 +29,14 @@ with ``_arranged_grad_tpu``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from actalker_tpu_torch.ops._build import (
-    Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
+    Kernel, check, check_cuda_tensors, cuda_tensors_ok, needs_grad, ptr,
+    stream_of)
 
 MASK_LANE = 126   # slab lane carrying the inactivity flag
 LANES = 128       # slab lanes per group
@@ -483,37 +486,114 @@ def ssm_scan_arranged_ref(u_a, dt_a, bc_a, A, D, bias, reverse: bool
     return F.pad(y, (0, u_a.shape[2] - d)).to(u_a.dtype)
 
 
+_ACT = (torch.bfloat16, torch.float32)
+_K5_DTYPES = {"u": _ACT, "dt": _ACT, "bc": _ACT, "A": (torch.float32,),
+              "D": (torch.float32,), "bias": (torch.float32,)}
+
+# K5's geometry (csrc/ssm_scan.cu): tokens a ring slot holds (a segment is
+# a multiple of it), chains a block (two lanes each)
+FWD_CHUNK, FWD_BLOCK = 32, 64
+# the wide path (one walk a chain) from this many chains (about two waves
+# of 128-chain groups on the card's 132 SMs); below it the chain is cut
+# into segments of at least FWD_MIN_SEGMENT tokens, enough for about
+# FWD_TARGET_BLOCKS blocks, where that makes more than two
+FWD_WIDE_CHAINS, FWD_TARGET_BLOCKS, FWD_MIN_SEGMENT = 264 * 128, 1056, 32
+
+
+def _fwd_smem(itemsize: int) -> int:
+    """K5's dynamic shared bytes: a ring of two chunks (u, dt and the 2N
+    B|C lanes), the chunk's B|C rows and deltas in fp32."""
+    slot = (2 * FWD_CHUNK * FWD_BLOCK * itemsize
+            + FWD_CHUNK * 2 * D_STATE * itemsize)
+    return 2 * slot + FWD_CHUNK * 2 * D_STATE * 4 + FWD_CHUNK * FWD_BLOCK * 4
+
+
+def _padded_f32(t, rows: int):
+    """t (fp32, contiguous) with its first axis zero-padded to ``rows``:
+    t itself when it already is one."""
+    if t.shape[0] == rows and t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    pad = (0, 0) * (t.ndim - 1) + (0, rows - t.shape[0])
+    return F.pad(t.float(), pad).contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(lp: int, bp: int, dp: int, itemsize: int) -> dict:
+    """K5's launch plan for an arranged scan of L = ``lp`` tokens, ``bp``
+    rows and ``dp`` channels of ``itemsize``-byte activations (cached: one
+    dict per shape, not to be changed).
+
+    Channels are padded to ``dpp``, a multiple of 8 (16-byte copies), and
+    taken ``FWD_BLOCK`` to a block. With ``FWD_WIDE_CHAINS`` chains or more,
+    or where cutting would give two segments or fewer, the path is "wide":
+    one walk a chain, ``seg_len`` >= L, ``nseg`` 1. Else "segments":
+    ``nseg`` segments of ``seg_len`` tokens (a multiple of the chunk), a
+    replay, a join and a second walk, with the ``buffers`` the wrapper
+    allocates (each segment's end state and decay product but the
+    last's). ``smem``: the walks' dynamic shared bytes."""
+    dpp = _round_up(dp, 8)
+    nblk = -(-dpp // FWD_BLOCK)
+    want = -(-FWD_TARGET_BLOCKS // (nblk * bp))
+    seg_len = max(FWD_MIN_SEGMENT, _round_up(-(-lp // want), FWD_CHUNK))
+    nseg = -(-lp // seg_len)
+    if bp * dpp >= FWD_WIDE_CHAINS or nseg <= 2:
+        return {"path": "wide", "dpp": dpp,
+                "seg_len": _round_up(max(lp, 1), FWD_CHUNK), "nseg": 1,
+                "grid": {"walk": (nblk, bp)}, "buffers": {},
+                "smem": _fwd_smem(itemsize)}
+    rec = (nseg - 1, bp, D_STATE, dpp)
+    return {"path": "segments", "dpp": dpp, "seg_len": seg_len, "nseg": nseg,
+            "grid": {"replay": (nblk, nseg - 1, bp),
+                     "join": (-(-bp * D_STATE * dpp // 256),),
+                     "walk": (nblk, nseg - 1, bp)},
+            "buffers": {"seg_h": rec, "seg_p": rec}, "smem": _fwd_smem(itemsize)}
+
+
 def _arranged_fwd(u_a, dt_a, bc_a, A, D, bias, reverse: bool) -> torch.Tensor:
     """K5 forward, no autograd; shapes as ``ssm_scan_arranged_ref``. CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. The launch plan is ``fwd_plan``'s (channels padded to a multiple
+    of 8 with zeros, which the output drops)."""
     if not u_a.is_cuda:
         return ssm_scan_arranged_ref(u_a, dt_a, bc_a, A, D, bias, reverse)
     lp, bp, dp = u_a.shape
     d, n = A.shape
     nb = bc_a.shape[-1]
-    check(n == D_STATE, f"K5: d_state {n} must be {D_STATE}")
-    check(d <= dp and tuple(D.shape) == (d,) and tuple(bias.shape) == (d,),
-          f"K5: A {tuple(A.shape)}, D / bias (D,) with D <= Dp = {dp}")
-    check(tuple(dt_a.shape) == (lp, bp, dp), "K5: dt must match u")
-    check(tuple(bc_a.shape) == (lp, bp, nb) and nb >= 2 * n,
-          f"K5: bc {tuple(bc_a.shape)} must be (L, B, NB >= 2N)")
-    # pad channels get A = D = bias = 0 (as _arranged_pallas pads them)
-    a_p = F.pad(A.float(), (0, 0, 0, dp - d)).contiguous()
-    d_p, b_p = (F.pad(t.float(), (0, dp - d)).contiguous() for t in (D, bias))
-    act = (torch.bfloat16, torch.float32)
-    f32 = (torch.float32,)
-    check_cuda_tensors("K5", (u_a, dt_a, bc_a, a_p, d_p, b_p),
-                       {"u": act, "dt": act, "bc": act, "A": f32, "D": f32,
-                        "bias": f32})
-    check(dt_a.dtype == u_a.dtype and bc_a.dtype == u_a.dtype,
-          "K5: dt and bc dtype must match u")
-    y = torch.empty((lp, bp, dp), dtype=u_a.dtype, device=u_a.device)
+    if not (n == D_STATE and d <= dp and D.shape == (d,) and bias.shape == (d,)
+            and dt_a.shape == u_a.shape and bc_a.shape[:2] == u_a.shape[:2]
+            and nb >= 2 * n and nb % 8 == 0):
+        check(n == D_STATE, f"K5: d_state {n} must be {D_STATE}")
+        check(d <= dp and tuple(D.shape) == (d,) and tuple(bias.shape) == (d,),
+              f"K5: A {tuple(A.shape)}, D / bias (D,) with D <= Dp = {dp}")
+        check(tuple(dt_a.shape) == (lp, bp, dp), "K5: dt must match u")
+        check(False, f"K5: bc {tuple(bc_a.shape)} must be (L, B, NB >= 2N), "
+              "NB % 8 == 0")
+    plan = fwd_plan(lp, bp, dp, u_a.element_size())
+    dpp = plan["dpp"]
+    if not (d == dp == dpp and dt_a.dtype is u_a.dtype and bc_a.dtype is u_a.dtype
+            and cuda_tensors_ok((u_a, dt_a, bc_a, A, D, bias), _K5_DTYPES)):
+        # pad channels get A = D = bias = 0 (as _arranged_pallas pads them)
+        A, D, bias = (_padded_f32(t, dpp) for t in (A, D, bias))
+        check_cuda_tensors("K5", (u_a, dt_a, bc_a, A, D, bias), _K5_DTYPES)
+        if not (dt_a.dtype is u_a.dtype and bc_a.dtype is u_a.dtype):
+            check(False, "K5: dt and bc dtype must match u")
+        if dpp != dp:
+            u_a, dt_a = (F.pad(x, (0, dpp - dp)) for x in (u_a, dt_a))
+    y = torch.empty((lp, bp, dpp), dtype=u_a.dtype, device=u_a.device)
+    seg_h = seg_p = None
+    if plan["buffers"]:
+        rec = plan["buffers"]["seg_h"]
+        size = rec[0] * rec[1] * rec[2] * rec[3]
+        buf = torch.empty(2 * size, dtype=torch.float32, device=u_a.device)
+        seg_h = buf.data_ptr()
+        seg_p = seg_h + 4 * size
     fn = "ssm_scan_bf16" if u_a.dtype == torch.bfloat16 else "ssm_scan_f32"
-    ARRANGED_KERNEL.launch(fn, "pppppppiiiiip", ptr(u_a), ptr(dt_a), ptr(bc_a),
-                           ptr(a_p), ptr(d_p), ptr(b_p), ptr(y), lp, bp, dp, nb,
-                           int(reverse), stream_of(u_a))
-    return y
+    ARRANGED_KERNEL.launch(
+        fn, "p" * 9 + "i" * 7 + "p", u_a.data_ptr(), dt_a.data_ptr(),
+        bc_a.data_ptr(), A.data_ptr(), D.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), seg_h, seg_p, lp, bp, dpp, nb, int(reverse),
+        plan["seg_len"], plan["smem"], stream_of(u_a))
+    return y if dpp == dp else y[..., :dp].contiguous()
 
 
 class SsmScanArrangedFn(torch.autograd.Function):

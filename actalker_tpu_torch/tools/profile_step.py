@@ -5,6 +5,7 @@ port's work on the card, summed by kernel group.
     python -m actalker_tpu_torch.tools.profile_step --what forward
     python -m actalker_tpu_torch.tools.profile_step --what forward \
         --norm fused --resconv pallas
+    python -m actalker_tpu_torch.tools.profile_step --what lineage
 
 ``train``: ``training.train.main`` at the ``configs/train.yaml`` operating
 point (512 px, 25 frames, batch 1, 4-step accumulation, block
@@ -15,10 +16,15 @@ full-width bf16 UNet forward at the clip path's window-step shape (4 CFG x
 ``--norm`` / ``--resconv`` set the model's two lowering switches
 (``models.common.set_norm_impl``, ``models.resnet.set_resconv_impl``);
 ``--norm fused --resconv pallas`` is the fused-norm configuration (K7-LN,
-K7-GN, K8).
+K7-GN, K8). ``lineage``: the SS2D lineage as ``chip_smoke.py`` phase 8
+builds it, one forward each after a warm-up: SS2DCondV9(320) at the UNet's
+res-64 control-block shape (56 x 4096 tokens, bf16, face-box masks) and
+MambaUPNet at its published dims on (8, 8, 8, 512) fp32; one window, and
+one report, per module.
 Prints the card line, the wall time of the window, the device busy time
-and idle share, and the device time per group of kernels; one JSON line
-at the end. Needs a CUDA card.
+and idle share, and the device time per group of kernels, under each of
+the port's kernels its device time per launch by launch grid; a JSON line
+for each window. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 # (group, name substrings), first match wins: the port's own kernels first
 GROUPS = (
     ("K1 grouped scan", ("ssm_grouped_kernel",)),
-    ("K5 scan", ("ssm_scan_kernel",)),
+    ("K5 scan", ("ssm_scan_",)),
     ("K6 scan adjoint", ("ssm_bwd_",)),
     ("K2 attention", ("mha_fwd_kernel",)),
     ("K2-bwd attention backward", ("dkdv_kernel", "dq_kernel", "row_dot")),
@@ -43,7 +49,7 @@ GROUPS = (
     ("K4 GEGLU", ("gemm_tn_kernel",)),
     ("K7-LN layer norm", ("layer_norm_",)),
     ("K7-GN group norm", ("gn_stats_kernel", "gn_finalize_kernel",
-                          "gn_apply_kernel")),
+                          "gn_apply_kernel", "gn_cluster_kernel")),
     ("K8 GN + SiLU + conv3x3", ("gn_silu_conv3x3_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("cuDNN convs", ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")),
@@ -64,27 +70,46 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def short_name(name: str) -> str:
+    """A kernel's demangled name without its return type, namespace and
+    parameter list (its template arguments kept)."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(", 1)[0]
+
+
 def device_times(trace_path: str):
-    """(busy ms, {group: ms}) from a chrome trace: the sum of kernel,
-    memcpy and memset durations."""
+    """(busy ms, {group: ms}, launches) from a chrome trace: the sum of
+    kernel, memcpy and memset durations; ``launches`` maps each of the
+    port's own kernels (groups "K...") by (group, name, grid) to its
+    [count, ms], so each launch shape's device time reads on its own."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    groups = {}
+    groups, launches = {}, {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
                                                   "gpu_memset"):
             g = group_of(e["name"]) if e["cat"] == "kernel" else "memcpy / memset"
             groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
-    return sum(groups.values()), groups
+            if g.startswith("K"):
+                key = (g, short_name(e["name"]),
+                       tuple(e.get("args", {}).get("grid", ())))
+                hit = launches.setdefault(key, [0, 0.0])
+                hit[0] += 1
+                hit[1] += e["dur"] / 1e3
+    return sum(groups.values()), groups, launches
 
 
 class Window:
-    """A profiled window: ``start()`` / ``stop()`` on a synchronized card."""
+    """A profiled window: ``start()`` / ``stop()`` on a synchronized card.
+    ``stop()`` reads the window's device time at once (``busy``, ``groups``)
+    through a chrome trace in ``tmp``: a later profiler session in the
+    process leaves an earlier one's kernels without device timestamps."""
 
-    def __init__(self):
+    def __init__(self, tmp: str):
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         self.prof = torch.profiler.profile(activities=acts)
+        self.trace = os.path.join(tmp, "trace.json")
 
     def start(self):
         torch.cuda.synchronize()
@@ -95,12 +120,14 @@ class Window:
         torch.cuda.synchronize()
         self.wall = time.perf_counter() - self.t0
         self.prof.__exit__(None, None, None)
+        self.prof.export_chrome_trace(self.trace)
+        self.busy, self.groups, self.launches = device_times(self.trace)
 
 
 def profile_train(tmp: str) -> Window:
     from actalker_tpu_torch.training import train
 
-    win = Window()
+    win = Window(tmp)
 
     def observe(trainer, rec):
         if rec is not None and rec["step"] == 3:
@@ -114,7 +141,7 @@ def profile_train(tmp: str) -> Window:
     return win
 
 
-def profile_forward() -> Window:
+def profile_forward(tmp: str) -> Window:
     from actalker_tpu_torch.io.init import cast_params_bf16_, random_init_
     from actalker_tpu_torch.models.conditioning import Conditioning
     from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalCondition
@@ -131,7 +158,7 @@ def profile_forward() -> Window:
                         rn(b * f, 1, 1024).bfloat16(), ones, ones)
     args = (rn(b, f, hw, hw, 8).bfloat16(), torch.tensor(0.5, device=dev), cond,
             rn(b, 3).bfloat16(), (rn(b, f, hw, hw, 320) * 0.1).bfloat16())
-    win = Window()
+    win = Window(tmp)
     with torch.no_grad():
         unet(*args)
         win.start()
@@ -140,9 +167,44 @@ def profile_forward() -> Window:
     return win
 
 
+def profile_lineage(tmp: str):
+    """[(label, Window)]: one V9 and one MambaUPNet forward, built and fed
+    as ``chip_smoke.py`` phase 8 builds them (the same seeds and draws)."""
+    from actalker_tpu_torch.io.init import cast_params_bf16_, lineage_init_
+    from actalker_tpu_torch.models import ssm_spatial as sp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    x = rn(56, 4096, 320).bfloat16()
+    id_emb, audio, expr = (rn(56, s, 1024).bfloat16() for s in (1, 32, 1))
+    face = torch.zeros(1, 1, 512, 512, device=dev)
+    face[..., 128:384, 128:384] = 1.0
+    cases = (("SS2DCondV9(320) bf16 (56, 4096, 320)", lambda: sp.SS2DCondV9(320),
+              0, True, (x, id_emb, audio, expr, face, face)),
+             ("MambaUPNet() fp32 (8, 8, 8, 512)", sp.MambaUPNet, 3, False,
+              (rn(8, 8, 8, 512),)))
+    windows = []
+    for label, make, seed, bf16, args in cases:
+        with torch.device("meta"):
+            mod = make()
+        mod = lineage_init_(mod, seed=seed, device=dev)
+        mod = (cast_params_bf16_(mod) if bf16 else mod).eval()
+        win = Window(tmp)
+        with torch.no_grad():
+            mod(*args)
+            win.start()
+            mod(*args)
+            win.stop()
+        windows.append((label, win))
+        del mod
+    return windows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--what", choices=("train", "forward"), default="train")
+    p.add_argument("--what", choices=("train", "forward", "lineage"),
+                   default="train")
     p.add_argument("--norm", choices=("xla", "fused"), default="xla")
     p.add_argument("--resconv", choices=("xla", "pallas"), default="xla")
     args = p.parse_args(argv)
@@ -160,21 +222,29 @@ def main(argv=None):
     os.makedirs(scratch, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="profile-", dir=scratch)
     try:
-        win = profile_train(tmp) if args.what == "train" else profile_forward()
-        trace = os.path.join(tmp, "trace.json")
-        win.prof.export_chrome_trace(trace)
-        busy, groups = device_times(trace)
+        if args.what == "train":
+            windows = [("", profile_train(tmp))]
+        elif args.what == "forward":
+            windows = [("", profile_forward(tmp))]
+        else:
+            windows = profile_lineage(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    wall_ms = win.wall * 1e3
-    print(f"[profile {args.what} norm={args.norm} resconv={args.resconv}] "
-          f"{card} | wall {wall_ms:.2f} ms | device busy "
-          f"{busy:.2f} ms | idle {100 * max(0.0, 1 - busy / wall_ms):.1f}%")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g:32s} {ms:10.2f} ms {100 * ms / busy:6.1f}%")
-    print(json.dumps({"what": args.what, "norm": args.norm,
-                      "resconv": args.resconv, "card": card, "wall_ms": wall_ms,
-                      "busy_ms": busy, "groups_ms": groups}))
+    for label, win in windows:
+        wall_ms, busy, groups = win.wall * 1e3, win.busy, win.groups
+        print(f"[profile {args.what}{' ' + label if label else ''} norm={args.norm} "
+              f"resconv={args.resconv}] {card} | wall {wall_ms:.2f} ms | device "
+              f"busy {busy:.2f} ms | idle {100 * max(0.0, 1 - busy / wall_ms):.1f}%")
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"  {g:32s} {ms:10.2f} ms {100 * ms / busy:6.1f}%")
+            for (kg, name, grid), (k, kms) in sorted(win.launches.items()):
+                if kg == g:
+                    print(f"    {name} grid {grid}: {k} launches, "
+                          f"{kms / k:.4f} ms each")
+        print(json.dumps({"what": args.what, "module": label or None,
+                          "norm": args.norm, "resconv": args.resconv,
+                          "card": card, "wall_ms": wall_ms, "busy_ms": busy,
+                          "groups_ms": groups}))
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ Phases, one line each (any failure raises and exits non-zero):
      the shapes the clip, training and lineage paths give it, same inputs,
      fp32 accumulation in the plain version, with CUDA-event times
      (median), the time of one PyTorch library call computing the same
-     function where there is one, and the data-sheet bound (K1 and K6 also
-     their special-function floor; K4 and K8 also a chain of library calls
+     function where there is one, and the data-sheet bound (K1, K5 and K6
+     also their special-function floor; K7-GN also K8's statistics alone,
+     bound by one read of x; K4 and K8 also a chain of library calls
      computing their function, timed only; K7-LN and K8 also their launch
      alone, without the wrapper's other work); then K8's five
      bisect variants (``tools/resconv_bisect.py``) against their plain
@@ -454,17 +455,28 @@ def kernel_cases(torch, dev, gen):
         nbytes = lp * bp * (3 * dp + 32) * item + 4 * dp * 18
         return args, nbytes, ops
 
+    # the lineage's res-64 blocks, then MambaUPNet's four stages (8 images
+    # at its published dims: d_inner 2 x dim, L = (H / 2^s)^2)
     for lp, bp, dp, dtype, what in ((4096 + 33, 56, 640, bf, "V5/V6/V9 res-64"),
                                     (4096, 8, 128, torch.float32,
-                                     "MambaUPNet last stage")):
+                                     "MambaUPNet last stage"),
+                                    (64, 8, 1024, torch.float32,
+                                     "MambaUPNet stage 1"),
+                                    (256, 8, 512, torch.float32,
+                                     "MambaUPNet stage 2"),
+                                    (1024, 8, 256, torch.float32,
+                                     "MambaUPNet stage 3")):
         args, nbytes, ops = k5(lp, bp, dp, dtype)
         bnd = bound(nbytes, ops, PEAK_FP32)
+        # the special-function floor: 16 exps and a softplus (exp, log) per
+        # (token, row, channel), not part of the bound
+        floor = sfu_floor_ms(lp * bp * dp * 18)
         for rev in (False, True):
             yield ("ssm_scan", f"L={lp} Bp={bp} Dp={dp} {str(dtype)[6:]} "
                    f"{'reverse' if rev else 'forward'} ({what})",
                    lambda args=args, rev=rev: ss.ssm_scan_arranged(*args, reverse=rev),
                    lambda args=args, rev=rev: ss.ssm_scan_arranged_ref(*args, rev),
-                   None, bnd)
+                   None, bnd, {"floor": floor})
         if dtype is bf:
             # K5 -> K6: gradients through SsmScanArrangedFn against the same
             # function with the plain adjoint (K6's rows keep its training
@@ -586,8 +598,13 @@ def kernel_cases(torch, dev, gen):
                # K7-LN's launch alone, into an output made beforehand
                {"alone": lambda x=x, g=g, b=b, y=torch.empty_like(x):
                     norms.layer_norm_launch(x, g, b, y, 1e-5)})
+    # K7-GN: the transformers' norms at res-64 / -32 / -16 / -8, the
+    # temporal resnets' at res-64, the VAE's 512 px frames; then K8's
+    # statistics alone (one read of x) at res-64 and at res-16's widest
+    # resnet input
     for n, m, c, eps in ((56, 4096, 320, 1e-6), (4, 14 * 4096, 320, 1e-5),
-                         (14, 512 * 512, 128, 1e-6)):
+                         (14, 512 * 512, 128, 1e-6), (56, 1024, 640, 1e-6),
+                         (56, 256, 1280, 1e-6), (56, 64, 1280, 1e-6)):
         x = rnd(n, m, c, scale=2.0) - 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         # F.group_norm on the channels-last NCHW view (N, C, M, 1)
@@ -598,6 +615,13 @@ def kernel_cases(torch, dev, gen):
                lambda xv=xv, g=g.to(bf), b=b.to(bf), eps=eps:
                    F.group_norm(xv, 32, g, b, eps),
                bound(2 * n * m * c * 2 + 8 * c, 10 * n * m * c, PEAK_FP32))
+    for n, m, c in ((56, 4096, 320), (56, 256, 2560)):
+        x = rnd(n, m, c, scale=2.0) - 0.5
+        g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+        yield ("group_norm", f"statistics alone (K8's), (N, M, C) = ({n}, {m}, {c})",
+               lambda x=x, g=g, b=b: norms.group_norm_affine(x, g, b, 32, 1e-5),
+               lambda x=x, g=g, b=b: norms.gn_affine(x, g, b, 32, 1e-5), None,
+               bound(n * m * c * 2 + 8 * c + 8 * n * c, 3 * n * m * c, PEAK_FP32))
     for n, hw, c, co in ((56, 64, 320, 320), (56, 32, 640, 640),
                          (56, 16, 2560, 1280), (56, 8, 1280, 1280),
                          (14, 512, 128, 128)):

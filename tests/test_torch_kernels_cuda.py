@@ -814,3 +814,236 @@ def test_k8_bisect_variants(dev, shape):
     assert resconv.KERNEL.launches == n0 + len(resconv.VARIANTS)
     assert [r["variant"] for r in rows] == list(resconv.VARIANTS)
     assert all(r["ok"] for r in rows), rows
+
+
+# K7-GN at the edges of its two paths: C / G = 2, 4, 10, 30 and 40; an image
+# held by exactly one cluster of 8 CTAs (2048 rows of 128 channels); one
+# row; M no multiple of the rows per block; N = 1
+GN_SHAPES = [(2, 50, 64), (2, 2048, 128), (3, 100, 320), (2, 57, 960),
+             (3, 300, 1280), (2, 1, 320), (2, 105, 320), (1, 6144, 128)]
+
+
+def _gn_args(dev, shape, dtype, seed=7):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=dev) * 2 - 0.5).to(dtype)
+    return (x, torch.randn(c, generator=gen, device=dev),
+            torch.randn(c, generator=gen, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "two_pass"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_k7_gn_paths(dev, shape, dtype, tol, path):
+    """Both paths of K7-GN against its plain version (tol as K7-LN), one
+    launch each, the same bits on a second run (partial sums added in a
+    fixed order: no atomics)."""
+    x, g, b = _gn_args(dev, shape, dtype)
+    n, m, c = shape
+    plan = norms.gn_plan(n, m, c, 32, x.element_size(), path=path)
+    y, y2 = torch.empty_like(x), torch.empty_like(x)
+    n0 = norms.GN_KERNEL.launches
+    norms.group_norm_launch(x, g, b, 32, 1e-6, y, plan)
+    norms.group_norm_launch(x, g, b, 32, 1e-6, y2, plan)
+    assert norms.GN_KERNEL.launches == n0 + 2
+    assert _rel(y, norms.group_norm_ref(x, g, b, 32, 1e-6)) < tol
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_gn_two_pass_large_images(dev, dtype):
+    """Images no cluster holds (25 MB in bf16, 51 MB in fp32) take the two
+    passes through the wrapper: the plain version's output, the same bits
+    twice."""
+    x, g, b = _gn_args(dev, (3, 40000, 320), dtype)
+    assert norms.gn_plan(3, 40000, 320, 32, x.element_size())["path"] == "two_pass"
+    y, y2 = norms.group_norm(x, g, b, 32, 1e-6), norms.group_norm(x, g, b, 32, 1e-6)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert _rel(y, norms.group_norm_ref(x, g, b, 32, 1e-6)) < tol
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_SHAPES + [(56, 256, 2560)])
+def test_k7_gn_statistics_alone(dev, shape, dtype):
+    """K8's statistics (one launch) against ``gn_affine``, fp32 (tol 1e-5),
+    twice with the same bits: the arrival counters are left zeroed."""
+    x, g, b = _gn_args(dev, shape, dtype, seed=8)
+    n0 = norms.GN_KERNEL.launches
+    a1, b1 = norms.group_norm_affine(x, g, b, 32, 1e-6)
+    a2, b2 = norms.group_norm_affine(x, g, b, 32, 1e-6)
+    assert norms.GN_KERNEL.launches == n0 + 2
+    ar, br = norms.gn_affine(x, g, b, 32, 1e-6)
+    assert _rel(a1, ar) < 1e-5 and _rel(b1, br) < 1e-5
+    assert torch.equal(a1, a2) and torch.equal(b1, b2)
+
+
+@pytest.mark.cuda
+def test_k7_gn_from_a_fresh_thread(dev):
+    """The cluster path encodes its TMA map on the host: a thread that has
+    made no CUDA call yet gives the same bits, on both paths."""
+    import threading
+
+    x, g, b = _gn_args(dev, (56, 1024, 640), torch.bfloat16)
+    xt, gt, bt = _gn_args(dev, (4, 4096, 320), torch.bfloat16)
+    assert norms.gn_plan(56, 1024, 640, 32, 2)["path"] == "cluster"
+    want = (norms.group_norm(x, g, b, 32, 1e-6), norms.group_norm(xt, gt, bt, 32, 1e-6))
+    got = {}
+
+    def run():
+        got["y"] = (norms.group_norm(x, g, b, 32, 1e-6),
+                    norms.group_norm(xt, gt, bt, 32, 1e-6))
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert all(torch.equal(a, w) for a, w in zip(got["y"], want))
+
+
+@pytest.mark.cuda
+def test_k7_gn_refuses_a_plan_that_disagrees(dev):
+    """The C entries check the plan: another shared-memory size, a slice
+    that is no whole number of groups, a cluster that misses rows, a
+    statistics block of other threads; each raises and does not run."""
+    x, g, b = _gn_args(dev, (2, 2048, 128), torch.bfloat16)
+    y = torch.empty_like(x)
+    plan = norms.gn_plan(2, 2048, 128, 32, 2, path="cluster")
+    cl, st = plan["cluster"], plan["stats"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def cluster(**kw):
+        p = {**cl, **kw}
+        norms.GN_KERNEL.launch(
+            "group_norm_cluster_bf16", "ppppiiiiiiiiiiifp", x.data_ptr(),
+            g.data_ptr(), b.data_ptr(), y.data_ptr(), 2, 2048, 128, 32, p["sc"],
+            p["p"], p["rows_cta"], p["box_rows"], p["nbox"], p["threads"],
+            p["smem"], 1e-6, stream)
+
+    cluster()
+    torch.cuda.synchronize()
+    for bad in ({"smem": cl["smem"] + 16}, {"sc": 6}, {"rows_cta": cl["rows_cta"] - 8},
+                {"box_rows": cl["box_rows"] + 4}):
+        with pytest.raises(RuntimeError):
+            cluster(**bad)
+    ab = torch.empty(2, 2, 128, device=dev)
+    part = torch.empty(2 * st["part"], device=dev)
+    count = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        norms.GN_KERNEL.launch(
+            "gn_stats_bf16", "pppppppiiiiiiifp", x.data_ptr(), g.data_ptr(),
+            b.data_ptr(), part.data_ptr(), count.data_ptr(), ab[0].data_ptr(),
+            ab[1].data_ptr(), 2, 2048, 128, 32, st["rows"], st["threads"] - 1,
+            st["smem"], 1e-6, stream)
+
+
+# K5 at the edges of its two paths (``fwd_plan``): L = 1, L around the
+# 32-token chunk and around whole segments (96 = three segments, 97 = a
+# one-token last one), Bp = 1, Dp = 128 / 200 / 640 / 1024; the
+# wide path at L <= 64 or many chains, segments otherwise
+K5_SHAPES = [(1, 1, 128), (1, 3, 640), (31, 2, 200), (32, 1, 128),
+             (33, 2, 640), (64, 8, 1024), (65, 1, 200), (96, 1, 128),
+             (97, 3, 128), (300, 1, 200), (1100, 2, 128), (200, 4, 1024)]
+
+
+def _k5_args(dev, dtype, lp, bp, dp, masked=0.3, seed=11):
+    """One arranged scan's K5 operands: ``masked`` of the rows inactive
+    (dt = -1e9), B|C in the first 32 of 128 lanes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    dt = 0.5 * rn(lp, bp, dp)
+    dt[torch.rand(lp, bp, generator=gen, device=dev) < masked] = -1e9
+    bc = torch.zeros(lp, bp, 128, device=dev)
+    bc[..., :32] = 0.5 * rn(lp, bp, 32)
+    return (rn(lp, bp, dp).to(dtype), dt.to(dtype), bc.to(dtype),
+            -torch.exp(0.5 * rn(dp, 16)), rn(dp), 0.5 * rn(dp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("lp,bp,dp", K5_SHAPES)
+def test_k5_scan_shapes(dev, lp, bp, dp, dtype, tol, rev):
+    """K5 on both paths against its plain version (tol as
+    test_k5_arranged_scan), one launch through the wrapper."""
+    args = _k5_args(dev, dtype, lp, bp, dp)
+    n0 = ss.ARRANGED_KERNEL.launches
+    y = ss.ssm_scan_arranged(*args, reverse=rev)
+    assert ss.ARRANGED_KERNEL.launches == n0 + 1
+    assert y.dtype == dtype and y.shape == (lp, bp, dp)
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, ss.ssm_scan_arranged_ref(*args, rev)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lp,bp,dp", [(64, 8, 1024), (300, 1, 200)])
+@pytest.mark.parametrize("masked", [0.0, 1.0])
+def test_k5_masked_rows(dev, masked, lp, bp, dp, dtype, rev):
+    """No row masked, and every row masked (identity steps: the state stays
+    zero, so y is D u rounded once, exactly as the plain version gives it),
+    on the wide path and on the segment path."""
+    assert {ss.fwd_plan(lp, bp, dp, 4)["path"]
+            for lp, bp, dp in ((64, 8, 1024), (300, 1, 200))} == {"wide", "segments"}
+    args = _k5_args(dev, dtype, lp, bp, dp, masked=masked, seed=12)
+    y = ss.ssm_scan_arranged(*args, reverse=rev)
+    ref = ss.ssm_scan_arranged_ref(*args, rev)
+    if masked == 1.0:
+        assert torch.equal(y, ref)
+    else:
+        assert _rel(y, ref) < (1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.cuda
+def test_k5_from_a_fresh_thread(dev):
+    """A thread that has made no CUDA call yet gives the same bits, on both
+    paths (no atomics)."""
+    import threading
+
+    wide = _k5_args(dev, torch.bfloat16, 200, 4, 1024)
+    seg = _k5_args(dev, torch.float32, 1100, 2, 128)
+    want = (ss.ssm_scan_arranged(*wide), ss.ssm_scan_arranged(*seg, reverse=True))
+    got = {}
+
+    def run():
+        got["y"] = (ss.ssm_scan_arranged(*wide),
+                    ss.ssm_scan_arranged(*seg, reverse=True))
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert all(torch.equal(a, w) for a, w in zip(got["y"], want))
+
+
+@pytest.mark.cuda
+def test_k5_refuses_a_plan_that_disagrees(dev):
+    """The C entry checks the plan: its chunk and block are the plan's; a
+    launch with another shared-memory size or a segment length that is no
+    whole number of chunks raises and does not run."""
+    assert ss.ARRANGED_KERNEL.constant("ssm_scan_chunk") == ss.FWD_CHUNK
+    assert ss.ARRANGED_KERNEL.constant("ssm_scan_block") == ss.FWD_BLOCK
+    u, dt, bc, a, d, bias = _k5_args(dev, torch.float32, 300, 1, 200)
+    plan = ss.fwd_plan(300, 1, 200, 4)
+    y = torch.empty_like(u)
+    buf = torch.empty(2 * math.prod(plan["buffers"]["seg_h"]), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(seg_len, smem):
+        ss.ARRANGED_KERNEL.launch(
+            "ssm_scan_f32", "p" * 9 + "i" * 7 + "p", u.data_ptr(), dt.data_ptr(),
+            bc.data_ptr(), a.data_ptr(), d.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), buf.data_ptr(), buf[buf.numel() // 2:].data_ptr(), 300,
+            1, 200, 128, 0, seg_len, smem, stream)
+
+    launch(plan["seg_len"], plan["smem"])
+    torch.cuda.synchronize()
+    assert _rel(y, ss.ssm_scan_arranged_ref(u, dt, bc, a, d, bias, False)) < 1e-5
+    for seg_len, smem in ((plan["seg_len"], plan["smem"] + 16),
+                          (plan["seg_len"] + 8, plan["smem"])):
+        with pytest.raises(RuntimeError):
+            launch(seg_len, smem)
