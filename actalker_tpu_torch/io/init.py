@@ -1,4 +1,5 @@
-"""Seeded parameter initialization and the inference-precision cast.
+"""Seeded parameter initialization, the inference-precision cast and the
+loading of the reference's checkpoints.
 
 Twin of ``actalker_tpu/io/init.py``: ``random_init_`` fills every parameter
 with ``standard_normal * 0.02`` from a seed (the ``random_like`` /
@@ -7,13 +8,26 @@ target device so a full-width UNet initializes on the card in seconds;
 ``cast_params_bf16_`` mirrors ``cast_params_bf16``. ``lineage_init_`` gives
 the SS2D lineage (``models/ssm_spatial.py``) the JAX package's own
 initializers instead, which keep the scan's range of decays.
+
+``load_checkpoints`` (twin of ``convert_checkpoint_params``) loads the
+reference's on-disk artifacts into the port's modules, whose keys are the
+files' own, with ``strict=True``: the six ``.pth`` files
+(``load_reference_checkpoints``, which the trainer shares), and, where they
+exist, the SVD-XT VAE's ``.safetensors`` (read by ``read_safetensors``,
+without the ``safetensors`` package), whisper-tiny's ``pytorch_model.bin``
+and the VASA MX31c checkpoint's ``generator`` / ``pose_model`` dicts.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
+from typing import Dict, Mapping, Optional, Set
 
 import torch
 import torch.nn as nn
+
+from actalker_tpu_torch.io import weights as W
 
 # scan state parameters stay fp32 (the scan contract, and the reference's
 # own fp32 override of its mamba parameters)
@@ -93,3 +107,133 @@ def lineage_init_(module: nn.Module, seed: int, device) -> nn.Module:
         else:
             p.zero_()
     return module
+
+
+# ------------------------------------------------------------ checkpoints
+
+_CKPT_KEYS = {"unet": "unet_checkpoint_path",
+              "pose_guider": "pose_guider_checkpoint_path",
+              "audio_proj": "audio_linear_checkpoint_path",
+              "id_proj": "id_proj_checkpoint_path",
+              "vasa_proj": "vasa_linear_checkpoint_path"}
+
+
+def load_reference_checkpoints(mods, ckpt_cfg: Dict) -> list:
+    """Start from the reference's ``.pth`` artifacts where the config names
+    them (``checkpoints:`` section); returns the loaded artifact names."""
+    loaded = []
+    for name, key in _CKPT_KEYS.items():
+        path = (ckpt_cfg or {}).get(key) or ""
+        if not path:
+            continue
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        mods[name].load_state_dict(sd, strict=True)
+        loaded.append(name)
+    adapter = (ckpt_cfg or {}).get("adapter_module_checkpoint_path") or ""
+    if adapter:
+        W.load_adapter_modules(mods["unet"], {
+            k: v.float().numpy() for k, v in torch.load(
+                adapter, map_location="cpu", weights_only=True).items()})
+        loaded.append("adapter_module")
+    return loaded
+
+
+_SAFETENSORS_DTYPES = {"F16": torch.float16, "BF16": torch.bfloat16,
+                       "F32": torch.float32}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors: an 8-byte little-endian header
+    length, a JSON header (name -> dtype, shape, data offsets), then the raw
+    little-endian tensors. F16, BF16 and F32 entries; others raise."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {meta['dtype']}; "
+                             f"read are {sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = meta["data_offsets"]
+        count = (end - begin) // dtype.itemsize
+        t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) \
+            if count else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(meta["shape"])
+    return out
+
+
+def load_state_file(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` or ``torch.save`` state dict (a ``state_dict``
+    entry unwrapped), as CPU tensors."""
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["state_dict"] if "state_dict" in sd else sd
+
+
+def whisper_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The encoder's entries of an HF whisper state dict (``encoder.*`` of
+    ``WhisperModel``, ``model.encoder.*`` of the generation model), keyed
+    as ``models/whisper.py::WhisperEncoder``."""
+    out = {}
+    for key, val in sd.items():
+        for prefix in ("model.encoder.", "encoder."):
+            if key.startswith(prefix):
+                out[key[len(prefix):]] = val
+                break
+    return out
+
+
+def vasa_state_dicts(ck: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The MX31c checkpoint -> {"vasa_expression": the ``generator``'s
+    ``expression_model.*`` entries without that prefix, "vasa_pose": its
+    ``pose_model``} (the reference's ``Inference.py:149-154``)."""
+    pre = "expression_model."
+    return {"vasa_expression": {k[len(pre):]: v for k, v in ck["generator"].items()
+                                if k.startswith(pre)},
+            "vasa_pose": dict(ck["pose_model"])}
+
+
+def vae_path(cfg) -> str:
+    return os.path.join(cfg.pretrained_model_name_or_path or "", "vae",
+                        "diffusion_pytorch_model.fp16.safetensors")
+
+
+def whisper_path(cfg) -> str:
+    return os.path.join(cfg.whisper_model or "", "pytorch_model.bin")
+
+
+def load_checkpoints(cfg, modules: Mapping[str, nn.Module]) -> Optional[Set[str]]:
+    """Load the reference's artifacts named by ``cfg`` (an InferenceConfig)
+    into ``modules`` (name -> module: unet, pose_guider, audio_proj,
+    id_proj, vasa_proj, vae, whisper, vasa_expression, vasa_pose), each with
+    ``strict=True``. Returns None, loading nothing, when the UNet checkpoint
+    is absent; else the names of the modules loaded (the adapter rows ride
+    the UNet's). The frozen encoders load only where their files exist."""
+    def have(p):
+        return bool(p) and os.path.exists(p)
+
+    if not have(cfg.unet_checkpoint_path):
+        return None
+    paths = {key: getattr(cfg, key) for key in
+             list(_CKPT_KEYS.values()) + ["adapter_module_checkpoint_path"]}
+    loaded = set(load_reference_checkpoints(modules, paths)) - {"adapter_module"}
+    if os.path.exists(vae_path(cfg)):
+        modules["vae"].load_state_dict(read_safetensors(vae_path(cfg)),
+                                       strict=True)
+        loaded.add("vae")
+    if os.path.exists(whisper_path(cfg)):
+        modules["whisper"].load_state_dict(
+            whisper_state_dict(load_state_file(whisper_path(cfg))), strict=True)
+        loaded.add("whisper")
+    if have(cfg.vasa_checkpoint_path):
+        ck = torch.load(cfg.vasa_checkpoint_path, map_location="cpu",
+                        weights_only=True)
+        for name, sd in vasa_state_dicts(ck).items():
+            modules[name].load_state_dict(sd, strict=True)
+            loaded.add(name)
+    return loaded

@@ -45,6 +45,23 @@ def set_in(tree: Dict, path: str, value) -> None:
     tree[parts[-1]] = value
 
 
+_FC_CHANNELS = 512   # ArcFace's last stage width, the C of its fc input
+
+
+def _fc_chw_to_hwc(w):
+    out, n = w.shape
+    side = int(round((n // _FC_CHANNELS) ** 0.5))
+    return np.transpose(w.reshape(out, _FC_CHANNELS, side, side),
+                        (2, 3, 1, 0)).reshape(n, out)
+
+
+def _fc_hwc_to_chw(k):
+    n, out = k.shape
+    side = int(round((n // _FC_CHANNELS) ** 0.5))
+    return np.transpose(k.reshape(side, side, _FC_CHANNELS, out),
+                        (3, 2, 0, 1)).reshape(out, n)
+
+
 # kind -> (torch->flax transform, flax->torch inverse)
 _KINDS = {
     "linear": (t_linear, t_linear),                        # 2-D transpose
@@ -52,6 +69,8 @@ _KINDS = {
     "conv3": (t_conv3d, lambda w: np.transpose(w, (4, 3, 0, 1, 2))),
     "conv1": (t_conv1d, t_conv1d),
     "raw": (np.asarray, np.asarray),
+    # ArcFace's fc: torch (out, C*H*W) <-> flax kernel (H*W*C, out)
+    "fc_chw": (lambda w: _fc_chw_to_hwc(w), lambda k: _fc_hwc_to_chw(k)),
 }
 
 
@@ -325,6 +344,104 @@ def convert_pose_guider(sd, n_blocks: int = None) -> Dict:
     return {"params": dst}
 
 
+# --------------------------------------------------------------- encoders
+
+def convert_whisper_encoder(sd, layers: int = 4) -> Dict:
+    """HF ``WhisperModel`` state dict (``encoder.*`` keys) -> WhisperEncoder
+    params."""
+    dst: Dict = {}
+    _put(dst, sd, "conv1/kernel", "encoder.conv1.weight", "conv1")
+    _put(dst, sd, "conv1/bias", "encoder.conv1.bias")
+    _put(dst, sd, "conv2/kernel", "encoder.conv2.weight", "conv1")
+    _put(dst, sd, "conv2/bias", "encoder.conv2.bias")
+    _put(dst, sd, "embed_positions", "encoder.embed_positions.weight")
+    for i in range(layers):
+        p, s = f"layers_{i}", f"encoder.layers.{i}"
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            _norm(dst, f"{p}/{ln}", sd, f"{s}.{ln}")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(dst, f"{p}/{proj}", sd, f"{s}.self_attn.{proj}")
+        for fc in ("fc1", "fc2"):
+            _linear(dst, f"{p}/{fc}", sd, f"{s}.{fc}")
+    _norm(dst, "layer_norm", sd, "encoder.layer_norm")
+    return {"params": dst}
+
+
+def convert_vasa_expression(sd) -> Dict:
+    """The MX31c ``generator`` dict (``expression_model.resnet50.*``) ->
+    HeadExpression params."""
+    dst: Dict = {}
+    r = "expression_model.resnet50"
+    _put(dst, sd, "conv1/kernel", f"{r}.conv1.weight", "conv2")
+    _norm(dst, "gn1", sd, f"{r}.gn1")
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        for j in range(blocks):
+            s, p = f"{r}.layer{i + 1}.{j}", f"layer{i + 1}_{j}"
+            for n in ("1", "2", "3"):
+                _put(dst, sd, f"{p}/conv{n}/kernel", f"{s}.conv{n}.weight", "conv2")
+                _norm(dst, f"{p}/gn{n}", sd, f"{s}.gn{n}")
+            if f"{s}.downsample.0.weight" in sd:
+                _put(dst, sd, f"{p}/downsample_conv/kernel",
+                     f"{s}.downsample.0.weight", "conv2")
+                _norm(dst, f"{p}/downsample_gn", sd, f"{s}.downsample.1")
+    _linear(dst, "fc", sd, f"{r}.fc")
+    return {"params": dst}
+
+
+def convert_vasa_pose(sd) -> Dict:
+    """The MX31c ``pose_model`` dict (``head_pose_net.*``) -> HeadPose
+    params."""
+    dst: Dict = {}
+    r = "head_pose_net"
+    _put(dst, sd, "conv1/kernel", f"{r}.conv1.weight", "conv2")
+    _norm(dst, "bn1", sd, f"{r}.bn1")
+    for i, blocks in enumerate((2, 2, 2, 2)):
+        for j in range(blocks):
+            s, p = f"{r}.layer{i + 1}.{j}", f"layer{i + 1}_{j}"
+            for n in ("1", "2"):
+                _put(dst, sd, f"{p}/conv{n}/kernel", f"{s}.conv{n}.weight", "conv2")
+                _norm(dst, f"{p}/bn{n}", sd, f"{s}.bn{n}")
+            if f"{s}.shortcut.0.weight" in sd:
+                _put(dst, sd, f"{p}/shortcut_conv/kernel",
+                     f"{s}.shortcut.0.weight", "conv2")
+                _norm(dst, f"{p}/shortcut_gn", sd, f"{s}.shortcut.1")
+    _linear(dst, "fc", sd, f"{r}.fc")
+    return {"params": dst}
+
+
+def convert_arcface(sd, layers=(3, 4, 14, 3)) -> Dict:
+    """insightface iResNet ``backbone.pth`` -> IResNet params. ``fc`` takes
+    the flattened (C, H, W) map in torch and the (H, W, C) map in the JAX
+    package, so its input rows are reordered (kind "fc_chw")."""
+    dst: Dict = {}
+
+    def bn(prefix, src):
+        _norm(dst, prefix, sd, src)
+        _put(dst, sd, f"{prefix}/mean", f"{src}.running_mean")
+        _put(dst, sd, f"{prefix}/var", f"{src}.running_var")
+
+    _put(dst, sd, "conv1/kernel", "conv1.weight", "conv2")
+    bn("bn1", "bn1")
+    _put(dst, sd, "prelu/alpha", "prelu.weight")
+    for i, blocks in enumerate(layers):
+        for j in range(blocks):
+            s, p = f"layer{i + 1}.{j}", f"layer{i + 1}_{j}"
+            for n in ("1", "2"):
+                _put(dst, sd, f"{p}/conv{n}/kernel", f"{s}.conv{n}.weight", "conv2")
+            for n in ("1", "2", "3"):
+                bn(f"{p}/bn{n}", f"{s}.bn{n}")
+            _put(dst, sd, f"{p}/prelu/alpha", f"{s}.prelu.weight")
+            if f"{s}.downsample.0.weight" in sd:
+                _put(dst, sd, f"{p}/downsample_conv/kernel",
+                     f"{s}.downsample.0.weight", "conv2")
+                bn(f"{p}/downsample_bn", f"{s}.downsample.1")
+    bn("bn2", "bn2")
+    _put(dst, sd, "fc/kernel", "fc.weight", "fc_chw")
+    _put(dst, sd, "fc/bias", "fc.bias")
+    bn("features", "features")
+    return {"params": dst}
+
+
 # ----------------------------------------------------- export (flax -> torch)
 
 def _flatten_params(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -438,6 +555,28 @@ def export_pose_guider(params: Mapping) -> Dict[str, np.ndarray]:
     tree = params.get("params", params)
     n_blocks = sum(1 for k in tree if str(k).startswith("blocks_"))
     return export_state_dict(convert_pose_guider, params, n_blocks=n_blocks)
+
+
+def export_whisper(params: Mapping) -> Dict[str, np.ndarray]:
+    """WhisperEncoder params -> the ``encoder.*`` entries of whisper-tiny's
+    ``pytorch_model.bin``."""
+    return export_state_dict(convert_whisper_encoder, params)
+
+
+def export_vasa_expression(params: Mapping) -> Dict[str, np.ndarray]:
+    """HeadExpression params -> the MX31c ``generator`` entries
+    (``expression_model.resnet50.*``)."""
+    return export_state_dict(convert_vasa_expression, params)
+
+
+def export_vasa_pose(params: Mapping) -> Dict[str, np.ndarray]:
+    """HeadPose params -> the MX31c ``pose_model`` dict."""
+    return export_state_dict(convert_vasa_pose, params)
+
+
+def export_arcface(params: Mapping) -> Dict[str, np.ndarray]:
+    """IResNet-50 params -> insightface's ``backbone.pth`` dict."""
+    return export_state_dict(convert_arcface, params)
 
 
 def export_lineage(params: Mapping) -> Dict[str, np.ndarray]:

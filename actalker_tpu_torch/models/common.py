@@ -63,6 +63,15 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class Conv2dNCHW(nn.Conv2d):
+    """2-D conv on NCHW input, weights cast to the input dtype (the image
+    encoders, which run channel-first)."""
+
+    def forward(self, x):
+        return F.conv2d(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype),
+                        self.stride, self.padding, self.dilation, self.groups)
+
+
 class TemporalConv(nn.Conv3d):
     """(3, 1, 1) conv over the frame axis of (B, F, H, W, C) video."""
 

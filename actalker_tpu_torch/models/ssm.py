@@ -18,12 +18,22 @@ projection gets -1e9, so softplus(delta) == 0): the state seen by selected
 tokens is exactly the one the reference's gather/scatter formulation
 computes. Every width runs all its (branch, direction) scans as one call of
 the grouped op, K1 (``ops.selective_scan.ssm_scan_grouped``); its gradient
-runs the adjoint kernel K6 once per group. The static-capacity gather of the
-JAX package is a speed path with the same output and is not ported.
+runs the adjoint kernel K6 once per group.
+
+Static-capacity gather (``capacity_frac``, the JAX package's speed path of
+modes 0 and 1): given an upper bound on each branch's selected fraction,
+the block scans a compact buffer instead of every token. A branch's K =
+ceil(frac * L) (rounded up to 8) slots take its selected tokens in token
+order (a cumsum slot assignment, the reference's ``masked_select`` order),
+then its tail; K1 walks max(K + tail) rows, and the outputs are scattered
+back. A branch switched off by its gate (frac 0) scans its tail only. More
+selected tokens than K break the contract: ``capacity_overflow="nan"``
+poisons the block's output, ``"drop"`` leaves the extra tokens unscanned.
 """
 from __future__ import annotations
 
 import math
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -105,14 +115,23 @@ class SS2DCondV10(nn.Module):
 
     Ablation flags as in the JAX package: ``use_id=False`` drops the
     identity token, ``use_audio`` / ``use_exp`` drop a branch, and
-    ``no_scan=True`` makes each branch's output its input projection."""
+    ``no_scan=True`` makes each branch's output its input projection.
+    ``capacity_frac`` (audio, exp) switches on the gather path (module
+    docstring); None scans every token (masked-dense)."""
 
     def __init__(self, d_model: int, d_cond: int = 1024, d_state: int = 16,
                  expand: int = 2, use_id: bool = True, use_audio: bool = True,
-                 use_exp: bool = True, no_scan: bool = False):
+                 use_exp: bool = True, no_scan: bool = False,
+                 capacity_frac: Optional[Tuple[float, float]] = None,
+                 capacity_overflow: str = "nan"):
         super().__init__()
         if not (use_audio or use_exp):
             raise ValueError("cannot ablate both the audio and expression branches")
+        if capacity_overflow not in ("nan", "drop"):
+            raise ValueError(f"capacity_overflow {capacity_overflow!r}: "
+                             "'nan' or 'drop'")
+        self.capacity_frac = capacity_frac
+        self.capacity_overflow = capacity_overflow
         d_inner = expand * d_model
         self.d_inner, self.d_state = d_inner, d_state
         self.rank = math.ceil(d_model / 16)
@@ -135,7 +154,7 @@ class SS2DCondV10(nn.Module):
         """x (B, L, C) tokens; id_emb (B, 1, d_cond); audio_cond (B, Sa,
         d_cond); exp_cond (B, Se, d_cond); masks (Bm, 1, H, W) or None."""
         b, l, _ = x.shape
-        dt, di, n, rank = x.dtype, self.d_inner, self.d_state, self.rank
+        dt, di = x.dtype, self.d_inner
         branches = []
         if self.use_audio:
             branches.append(("1", "audio_proj", audio_cond, audio_mask,
@@ -165,22 +184,96 @@ class SS2DCondV10(nn.Module):
                 sels.append(expand_mask_rows(m, b))
             units.append(getattr(self, unit))
         ntoks = [t.shape[1] for t in tails]
-        lt = l + max(ntoks)
-
-        # arranged (L, B, .) buffers: token rows, then each branch's tail
         w_in = torch.cat([getattr(self, f"in_proj{name}").weight
                           for name, *_ in branches]).to(dt)
-        xz = x.new_zeros(lt, b, nb * di)
-        xz[:l] = F.linear(x.transpose(0, 1), w_in)
-        active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
-        for bi in range(nb):
-            xz[l:l + ntoks[bi], :, bi * di:(bi + 1) * di] = tails[bi].transpose(0, 1)
-            active[:l, :, bi] = sels[bi].transpose(0, 1)
-            active[l:l + ntoks[bi], :, bi] = True
+        caps = self._capacities([br[0] for br in branches],
+                                [br[3] for br in branches], l)
+        poison = None
+        if all(k == l for k in caps):
+            # masked-dense: arranged (L, B, .) buffers of the token rows,
+            # then each branch's tail
+            lt = l + max(ntoks)
+            xz = x.new_zeros(lt, b, nb * di)
+            xz[:l] = F.linear(x.transpose(0, 1), w_in)
+            active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
+            for bi in range(nb):
+                xz[l:l + ntoks[bi], :, bi * di:(bi + 1) * di] = \
+                    tails[bi].transpose(0, 1)
+                active[:l, :, bi] = sels[bi].transpose(0, 1)
+                active[l:l + ntoks[bi], :, bi] = True
+            y_g = self._scan(xz, active, units)
+            outs = [torch.where(active[:l, :, bi, None], self._branch_sum(y_g, bi, l),
+                                xz[:l, :, bi * di:(bi + 1) * di])
+                    for bi in range(nb)]
+        else:
+            xz_full = F.linear(x.transpose(0, 1), w_in)        # (l, b, nb*di)
+            lt = max(k + t for k, t in zip(caps, ntoks))
+            u_g = x.new_zeros(lt, b, nb * di)
+            active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
+            gathered = []
+            overflow = torch.zeros((), dtype=torch.long, device=x.device)
+            for bi in range(nb):
+                k, cols = caps[bi], slice(bi * di, (bi + 1) * di)
+                rows, act = _compact_rows(sels[bi], k)          # (k, b) each
+                if k < l:   # the capacity contract, checked on the device
+                    overflow = overflow + (sels[bi].sum(1).max() - k).clamp_min(0)
+                xz_b = xz_full[:, :, cols].reshape(l * b, di)
+                gath = xz_b.index_select(0, rows.clamp_max(l * b - 1).reshape(-1)
+                                         ).reshape(k, b, di)
+                u_g[:k, :, cols] = gath
+                u_g[k:k + ntoks[bi], :, cols] = tails[bi].transpose(0, 1)
+                active[:k, :, bi] = act
+                active[k:k + ntoks[bi], :, bi] = True
+                gathered.append((xz_b, gath, rows, act))
+            y_g = self._scan(u_g, active, units)
+            outs = []
+            for bi, (xz_b, gath, rows, act) in enumerate(gathered):
+                k = caps[bi]
+                upd = torch.where(act[..., None], self._branch_sum(y_g, bi, k), gath)
+                # slots past the active count write a scratch row, dropped
+                out = torch.cat([xz_b, xz_b.new_zeros(1, di)])
+                out.index_copy_(0, rows.reshape(-1), upd.reshape(k * b, di))
+                outs.append(out[:l * b].reshape(l, b, di))
+            if self.capacity_overflow == "nan":
+                poison = torch.where(overflow > 0, float("nan"), 0.0).to(dt)
+        y = sum(outs)
+        if poison is not None:
+            y = y + poison
+        y = y.transpose(0, 1)                                   # (b, l, di)
+        return self.out_proj(self.out_norm(y))
 
-        g = 2 * nb
-        slab = x.new_zeros(lt, b, g * LANES)
-        dtw = torch.zeros(g, LANES, di, dtype=torch.float32, device=x.device)
+    def _capacities(self, names: List[str], masks, l: int) -> List[int]:
+        """Token slots per branch: L (every token) without a fraction or a
+        mask, else ceil(frac * L) rounded up to 8 and at most L."""
+        if self.capacity_frac is None:
+            return [l] * len(names)
+        by_name = {"1": self.capacity_frac[0], "2": self.capacity_frac[1]}
+        caps = []
+        for name, mask in zip(names, masks):
+            fr = by_name[name]
+            if fr is None or mask is None:
+                caps.append(l)
+                continue
+            k = int(math.ceil(min(max(fr, 0.0), 1.0) * l))
+            caps.append(min(l, -(-k // 8) * 8) if k else 0)
+        return caps
+
+    def _branch_sum(self, y_g, bi: int, rows: int) -> torch.Tensor:
+        """Branch ``bi``'s two directions of the scan output, first ``rows``."""
+        di = self.d_inner
+        return (y_g[:rows, :, 2 * bi * di:(2 * bi + 1) * di]
+                + y_g[:rows, :, (2 * bi + 1) * di:(2 * bi + 2) * di])
+
+    def _scan(self, xz, active, units) -> torch.Tensor:
+        """One K1 call over the arranged branch slabs ``xz`` (L, B, nb*di):
+        per (branch, direction) group the [dts | B | C | inactivity] slab,
+        the delta weights with their -1e9 mask row, A, D and the bias.
+        Rows where ``active`` (L, B, nb) is False are identity steps."""
+        lt, b, _ = xz.shape
+        dt, di, n, rank = xz.dtype, self.d_inner, self.d_state, self.rank
+        g = 2 * len(units)
+        slab = xz.new_zeros(lt, b, g * LANES)
+        dtw = torch.zeros(g, LANES, di, dtype=torch.float32, device=xz.device)
         a_g, d_g, b_g = [], [], []
         for bi, unit in enumerate(units):
             xw, dtw_u, dtb, a_log, d_skip = unit.weights()
@@ -196,14 +289,24 @@ class SS2DCondV10(nn.Module):
                 a_g.append(-torch.exp(a_log[k * di:(k + 1) * di].float()))
                 d_g.append(d_skip[k * di:(k + 1) * di].float())
                 b_g.append(dtb[k].float())
-        y_g = ssm_scan_grouped(xz, slab, dtw, torch.stack(a_g),
-                               torch.stack(d_g), torch.stack(b_g), rank)
-        y = None
-        for bi in range(nb):
-            y_b = (y_g[:l, :, 2 * bi * di:(2 * bi + 1) * di]
-                   + y_g[:l, :, (2 * bi + 1) * di:(2 * bi + 2) * di])
-            out = torch.where(active[:l, :, bi, None], y_b,
-                              xz[:l, :, bi * di:(bi + 1) * di])
-            y = out if y is None else y + out
-        y = y.transpose(0, 1)                                   # (b, l, di)
-        return self.out_proj(self.out_norm(y))
+        return ssm_scan_grouped(xz, slab, dtw, torch.stack(a_g),
+                                torch.stack(d_g), torch.stack(b_g), rank)
+
+
+def _compact_rows(sel: torch.Tensor, k: int):
+    """The gather's slot assignment for one branch: ``sel`` (B, L) bool ->
+    (rows, active), each (k, B). Slot j of column c takes the j-th selected
+    token of row c in token order (a cumsum, stable: the reference's
+    ``masked_select`` order); ``rows`` is that token's row of the flattened
+    arranged (L * B, .) buffer, L * B (a scratch row) for a slot no token
+    fills, and tokens past k are dropped. No host synchronization."""
+    b, l = sel.shape
+    pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1
+    slots = torch.where(sel & (pos < k), pos, torch.full_like(pos, k)).long()
+    tok = torch.full((b, k + 1), l, dtype=torch.long, device=sel.device)
+    tok.scatter_(1, slots, torch.arange(l, device=sel.device).expand(b, l))
+    tok = tok[:, :k].t()                                        # (k, b)
+    act = tok < l
+    cols = torch.arange(b, device=sel.device)
+    rows = torch.where(act, tok * b + cols, torch.full_like(tok, l * b))
+    return rows, act

@@ -24,6 +24,7 @@ from actalker_tpu_torch.models.common import Conv2d, GroupNorm32
 from actalker_tpu_torch.models.conditioning import Conditioning
 from actalker_tpu_torch.models.embeddings import (
     TimestepEmbedding, sinusoidal_embedding)
+from actalker_tpu_torch.models.ssm import SS2DCondV10
 from actalker_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlockSpatioTemporal, CrossAttnUpBlockSpatioTemporal,
     DownBlockSpatioTemporal, UNetMidBlockSpatioTemporal, UpBlockSpatioTemporal)
@@ -59,6 +60,10 @@ class UNetConfig:
     # the reference's ablation lineage as config: any subset of
     # {"audio", "vasa", "id", "ssd", "cross_attn"}
     ablate: Tuple[str, ...] = ()
+    # static masked-token capacity fractions (audio, exp) of every
+    # SS2DCondV10 (its gather path); the pipeline computes them from the
+    # clip's region masks. None scans every token.
+    mask_capacity: Optional[Tuple[float, float]] = None
 
     def tiny(self) -> "UNetConfig":
         """A scaled-down config for tests."""
@@ -130,6 +135,16 @@ class UNetSpatioTemporalCondition(nn.Module):
             ch = out
         self.conv_norm_out = GroupNorm32(ch)
         self.conv_out = Conv2d(ch, cfg.out_channels, 3, padding=1)
+        self.set_mask_capacity(cfg.mask_capacity)
+
+    def set_mask_capacity(self, caps: Optional[Tuple[float, float]]) -> None:
+        """Give every SS2DCondV10 the capacity fractions ``caps`` (audio,
+        exp), or None for the masked-dense scan, and record them in
+        ``config.mask_capacity``."""
+        self.config = dataclasses.replace(self.config, mask_capacity=caps)
+        for mod in self.modules():
+            if isinstance(mod, SS2DCondV10):
+                mod.capacity_frac = caps
 
     def attn2_modules(self) -> Iterator[Attention]:
         """Cross-attentions in the reference's ``attn_processors`` order

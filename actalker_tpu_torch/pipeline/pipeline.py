@@ -1,26 +1,34 @@
 """Clip generation: conditioning encoders, the sliding-window sampler and the
-chunked VAE decode. Twin of ``actalker_tpu/pipeline/pipeline.py`` without
-the audio and VASA encoder towers: ``generate_latents`` takes audio and
-VASA tokens that are already projected (``audio_tokens_per_frame`` and
-``vasa_tokens`` project them).
+chunked VAE decode. Twin of ``actalker_tpu/pipeline/pipeline.py``: whisper
+windows (``encode_audio_windows``) -> per-frame audio tokens
+(``audio_tokens_per_frame``); the VASA towers over driving-video crops
+(``encode_vasa_video``) -> expression tokens (``vasa_tokens``);
+``generate_latents`` (VAE encode, identity and pose features, the ring
+buffers, the sampler) and ``decode_latents``.
 
 Buffer semantics follow the reference: audio/vasa buffers past
 ``num_frames`` hold the unconditional tokens; masks default to all ones
-(mode 2), and modes 0/1 gate the inactive branch off in the sampler.
+(mode 2), and modes 0/1 gate the inactive branch off in the sampler. With a
+face-box mask in modes 0/1, ``_capacity_fracs`` turns the box into the SSM
+blocks' static scan budget (their gather path).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from actalker_tpu_torch.models.attention_blocks import downsample_ip_mask
 from actalker_tpu_torch.models.pose_guider import PoseGuider
 from actalker_tpu_torch.models.projections import (
     AudioProjModel, IDProjModel, VasaProjModel)
 from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalCondition
 from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
+from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
+from actalker_tpu_torch.models.whisper import WhisperEncoder
 from actalker_tpu_torch.pipeline.sampler import (
     CondBuffers, SamplerConfig, make_plan, sample_video)
 
@@ -33,6 +41,11 @@ class PipelineModules:
     id_proj: IDProjModel
     vasa_proj: VasaProjModel
     pose_guider: PoseGuider
+    whisper: WhisperEncoder
+    # the VASA towers; None when their checkpoint is absent (modes 1 / 2
+    # then take zero expression tokens)
+    vasa_expression: Optional[HeadExpression] = None
+    vasa_pose: Optional[HeadPose] = None
 
     @classmethod
     def create(cls, unet_config: Optional[UNetConfig] = None,
@@ -41,7 +54,8 @@ class PipelineModules:
                vae_dtype: torch.dtype = torch.float32,
                vasa_expression_dim: int = 1018) -> "PipelineModules":
         """``dtype`` is the UNet's compute dtype and ``vae_dtype`` the VAE's;
-        the projection heads and the PoseGuider compute in fp32. Build under
+        the projection heads, the PoseGuider and the encoders compute in
+        fp32. Build under
         ``torch.device("meta")`` and materialize with ``io.init`` to skip
         torch's default init at full width."""
         ucfg = unet_config or UNetConfig()
@@ -53,16 +67,26 @@ class PipelineModules:
             id_proj=IDProjModel(),
             vasa_proj=VasaProjModel(output_dim=vasa_expression_dim),
             pose_guider=PoseGuider(embedding_channels=ucfg.block_out_channels[0]),
+            whisper=WhisperEncoder(),
+            vasa_expression=HeadExpression(),
+            vasa_pose=HeadPose(),
         )
 
     def named(self):
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        """name -> module, the absent VASA towers left out."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 class ACTalkerPipeline:
-    def __init__(self, modules: PipelineModules, dtype=torch.bfloat16):
+    """``gather=False`` keeps the SSM blocks on their masked-dense scan
+    whatever the masks (the gather's yardstick)."""
+
+    def __init__(self, modules: PipelineModules, dtype=torch.bfloat16,
+                 gather: bool = True):
         self.m = modules
         self.dtype = dtype
+        self.gather = gather
         self.device = next(modules.unet.parameters()).device
 
     def _t(self, x):
@@ -70,6 +94,38 @@ class ACTalkerPipeline:
         if not torch.is_tensor(x):
             x = torch.tensor(np.asarray(x))
         return x.to(device=self.device, dtype=torch.float32)
+
+    @torch.no_grad()
+    def encode_audio_windows(self, mel) -> torch.Tensor:
+        """mel (B, 80, T) -> stacked whisper states (B, T // 2, 5, 384)."""
+        return self.m.whisper(self._t(mel))
+
+    @torch.no_grad()
+    def encode_vasa_video(self, face_crops: np.ndarray, pose_crops: np.ndarray,
+                          chunk: int = 16):
+        """The VASA towers over driving-video crops, ``chunk`` frames a call
+        (the last chunk padded with copies of its final crop).
+
+        face_crops: (F, 256, 256, 3) in [0, 1] (the expression tower's
+        input); pose_crops: (F, 256, 256, 3) in [0, 1] (the pose tower takes
+        ``x * 2 - 1``, the reference's ``Inference.py:494``). Returns numpy
+        (expr (F, 512), rot (F, 3)). Needs the VASA towers."""
+        if self.m.vasa_expression is None or self.m.vasa_pose is None:
+            raise RuntimeError("encode_vasa_video needs the VASA towers "
+                               "(vasa_checkpoint_path)")
+        exprs, rots = [], []
+        n = face_crops.shape[0]
+        for i in range(0, n, chunk):
+            fc, pc = self._t(face_crops[i:i + chunk]), self._t(pose_crops[i:i + chunk])
+            pad = chunk - fc.shape[0]
+            if pad:
+                fc = torch.cat([fc, fc[-1:].expand((pad,) + tuple(fc.shape[1:]))])
+                pc = torch.cat([pc, pc[-1:].expand((pad,) + tuple(pc.shape[1:]))])
+            keep = chunk - pad
+            exprs.append(self.m.vasa_expression(fc)[:keep].float().cpu().numpy())
+            rots.append(self.m.vasa_pose(pc * 2.0 - 1.0)["rotation"][:keep]
+                        .float().cpu().numpy())
+        return np.concatenate(exprs)[:n], np.concatenate(rots)[:n]
 
     @torch.no_grad()
     def audio_tokens_per_frame(self, audio_feats: np.ndarray, num_frames: int,
@@ -99,6 +155,55 @@ class ACTalkerPipeline:
                          torch.zeros_like(pose)], dim=-1)[:, None]
         return cond, unc
 
+    def ssm_strides(self):
+        """The latent strides the SSM blocks run at: they ride the
+        cross-attention transformers, down level i at stride 2^i, up level
+        i at 2^(n-1-i)."""
+        ucfg = self.m.unet.config
+        n_levels = len(ucfg.down_block_types)
+        return sorted(
+            {2 ** i for i, bt in enumerate(ucfg.down_block_types)
+             if bt.startswith("CrossAttn")}
+            | {2 ** (n_levels - 1 - i) for i, bt in enumerate(ucfg.up_block_types)
+               if bt.startswith("CrossAttn")}) or [1]
+
+    def _capacity_fracs(self, config: SamplerConfig, audio_mask, exp_mask,
+                        latent_hw):
+        """The SSM blocks' static token budgets (``SS2DCondV10``'s
+        ``capacity_frac``), computed on the host (twin of the JAX pipeline's).
+
+        Follows the sampler's gate table (modes 0 / 1 zero one branch) and
+        measures each region mask's selected fraction at every resolution
+        the SSM blocks run at, with the blocks' own ``downsample_ip_mask``,
+        so the budget is a true upper bound. Fractions round up to 1/16.
+        Returns None (masked-dense) when either budget exceeds 0.75: K1
+        walks the longest branch's rows, so the gather pays only when both
+        budgets are small (mode 2's all-ones masks stay dense)."""
+        ga, gv = config.gate
+        h8, w8 = latent_hw
+        scales = self.ssm_strides()
+
+        def frac_of(mask, gate_on):
+            if not gate_on:
+                return 0.0
+            if mask is None:
+                return 1.0
+            m = torch.as_tensor(np.asarray(mask, np.float32))
+            if m.min() >= 1.0 - 1e-6:
+                return 1.0
+            worst = 0.0
+            for s in scales:
+                l = (h8 // s) * (w8 // s)
+                sel = downsample_ip_mask(m, l)[..., 0] >= 1.0 - 1e-6
+                worst = max(worst, float(sel.sum(dim=-1).max()) / l)
+            return worst
+
+        fa = min(1.0, math.ceil(frac_of(audio_mask, ga) * 16) / 16)
+        fe = min(1.0, math.ceil(frac_of(exp_mask, gv) * 16) / 16)
+        if max(fa, fe) > 0.75:
+            return None
+        return (fa, fe)
+
     @torch.no_grad()
     def generate_latents(self, ref_image, id_embed, audio_tokens,
                          uncond_audio_tokens, vasa_tokens, uncond_vasa_tokens,
@@ -111,7 +216,9 @@ class ACTalkerPipeline:
 
         ``init_noise`` (buf, h, w, 4) and ``noise_aug`` (H, W, 3) replace the
         seeded draws of the initial noise and of the reference-image noise
-        augmentation (tests feed both packages the same numpy noise)."""
+        augmentation (tests feed both packages the same numpy noise). With
+        face-box masks in modes 0 / 1 the SSM blocks take their gather path
+        for this call (``_capacity_fracs``)."""
         m = self.m
         num_frames = audio_tokens.shape[0]
         plan = make_plan(config, num_frames)
@@ -149,10 +256,17 @@ class ACTalkerPipeline:
             audio_mask=ones if audio_mask is None else self._t(audio_mask),
             exp_mask=ones if exp_mask is None else self._t(exp_mask),
         )
-        latents = sample_video(
-            m.unet, config, plan, buffers, ref_latent, generator=gen,
-            dtype=self.dtype,
-            init_noise=None if init_noise is None else self._t(init_noise))
+        caps = self._capacity_fracs(config, audio_mask, exp_mask,
+                                    (hm // 8, wm // 8)) if self.gather else None
+        saved = m.unet.config.mask_capacity
+        m.unet.set_mask_capacity(caps)
+        try:
+            latents = sample_video(
+                m.unet, config, plan, buffers, ref_latent, generator=gen,
+                dtype=self.dtype,
+                init_noise=None if init_noise is None else self._t(init_noise))
+        finally:
+            m.unet.set_mask_capacity(saved)
         return latents[:num_frames]
 
     @torch.no_grad()

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from actalker_tpu_torch.diffusion import noise as noise_lib
 from actalker_tpu_torch.diffusion import scheduler as sch
 from actalker_tpu_torch.models.conditioning import Conditioning
 
@@ -47,6 +48,8 @@ class SamplerConfig:
     s_tmin: float = 0.0
     s_tmax: float = float("inf")
     s_noise: float = 1.0
+    noise_type: str = "random"       # churn draw: "random" | "video_fusion"
+    w_ind_noise: float = 0.5
     scheduler: sch.EulerDiscreteConfig = sch.EulerDiscreteConfig()
 
 
@@ -139,6 +142,21 @@ def _cfg_conditioning(buffers: CondBuffers, idx: torch.Tensor,
                         ip_scales=buffers.ip_scales)
 
 
+def _churn_noise(cfg: SamplerConfig, shape, generator, dev) -> torch.Tensor:
+    """The churn draw for windows ``shape`` (nw, fpb, h, w, 4): a standard
+    normal, or with ``noise_type="video_fusion"`` one correlated draw per
+    window (common over its frames, ``w_ind_noise`` of it per frame)."""
+    if cfg.noise_type == "video_fusion":
+        nw, fpb, h, w, c = shape
+        n5 = noise_lib.video_fusion_noise(generator, (nw, fpb, c, h, w),
+                                          cfg.w_ind_noise, device=dev)
+        return n5.permute(0, 1, 3, 4, 2)
+    if cfg.noise_type != "random":
+        raise ValueError(f"noise_type {cfg.noise_type!r}: 'random' or "
+                         "'video_fusion'")
+    return torch.randn(shape, generator=generator, device=dev)
+
+
 @torch.no_grad()
 def sample_video(unet, cfg: SamplerConfig, plan: SamplerPlan,
                  buffers: CondBuffers, ref_latent: torch.Tensor,
@@ -191,7 +209,7 @@ def sample_video(unet, cfg: SamplerConfig, plan: SamplerPlan,
             noise_pred = u + g1 * (a - u) + g2 * (b - a) + g3 * (c - b)
             churn = None
             if gamma > 0:
-                churn = torch.randn(lat.shape, generator=generator, device=dev)
+                churn = _churn_noise(cfg, lat.shape, generator, dev)
             outs.append(sch.step(lat, noise_pred, sigma, sigma_next,
                                  cfg.scheduler.prediction_type, gamma=gamma,
                                  noise=churn, s_noise=cfg.s_noise))

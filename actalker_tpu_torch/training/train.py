@@ -24,9 +24,10 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from actalker_tpu_torch.config import read_config
 from actalker_tpu_torch.io import checkpoint as ckpt
 from actalker_tpu_torch.io import weights as W
-from actalker_tpu_torch.io.init import random_init_
+from actalker_tpu_torch.io.init import load_reference_checkpoints, random_init_
 from actalker_tpu_torch.models.pose_guider import PoseGuider
 from actalker_tpu_torch.models.projections import (
     AudioProjModel, IDProjModel, VasaProjModel)
@@ -37,68 +38,6 @@ from actalker_tpu_torch.training.trainer import TrainBatch, TrainConfig, Trainer
 # the reference's trainable artifacts (the adapter to_k_ip / to_v_ip rows
 # live inside the UNet and export separately)
 TRAINABLE = ("unet", "pose_guider", "audio_proj", "id_proj", "vasa_proj")
-_CKPT_KEYS = {"unet": "unet_checkpoint_path",
-              "pose_guider": "pose_guider_checkpoint_path",
-              "audio_proj": "audio_linear_checkpoint_path",
-              "id_proj": "id_proj_checkpoint_path",
-              "vasa_proj": "vasa_linear_checkpoint_path"}
-
-
-def _scalar(text: str):
-    s = text.strip()
-    if s in ("", "~", "null"):
-        return None
-    if len(s) >= 2 and s[0] in "'\"" and s[-1] == s[0]:
-        return s[1:-1]
-    if s.lower() in ("true", "false"):
-        return s.lower() == "true"
-    if s.startswith("[") and s.endswith("]"):
-        return [_scalar(x) for x in s[1:-1].split(",") if x.strip()]
-    for cast in (int, float):
-        try:
-            return cast(s)
-        except ValueError:
-            pass
-    return s
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            quote = None if ch == quote else quote
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#":
-            return line[:i]
-    return line
-
-
-def read_config(path: str) -> Dict:
-    """The two-level ``key: value`` YAML of ``configs/train.yaml`` (sections
-    of scalars, inline ``[a, b]`` lists, ``#`` comments), read without
-    PyYAML, which the card's machine does not have."""
-    out: Dict = {}
-    section = None
-    with open(path) as f:
-        for n, raw in enumerate(f, 1):
-            line = _strip_comment(raw).rstrip()
-            if not line.strip():
-                continue
-            key, sep, val = line.strip().partition(":")
-            if not sep:
-                raise ValueError(f"{path}:{n}: expected 'key: value'")
-            if line[0] not in " \t":
-                section = None
-                if val.strip():
-                    out[key] = _scalar(val)
-                else:
-                    section = out[key] = {}
-            elif section is None:
-                raise ValueError(f"{path}:{n}: indented line outside a section")
-            else:
-                section[key] = _scalar(val)
-    return out
 
 
 def synthetic_batches(batch_size: int, frames: int, latent_hw: int,
@@ -141,26 +80,6 @@ def build_modules(ucfg: UNetConfig, device, dtype, seed: int = 0
     for i, m in enumerate(mods.values()):
         random_init_(m, seed=seed + i, device=device).train()
     return mods
-
-
-def load_reference_checkpoints(mods, ckpt_cfg: Dict) -> list:
-    """Start from the reference's ``.pth`` artifacts where the config names
-    them (``checkpoints:`` section); returns the loaded artifact names."""
-    loaded = []
-    for name, key in _CKPT_KEYS.items():
-        path = (ckpt_cfg or {}).get(key) or ""
-        if not path:
-            continue
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        mods[name].load_state_dict(sd, strict=True)
-        loaded.append(name)
-    adapter = (ckpt_cfg or {}).get("adapter_module_checkpoint_path") or ""
-    if adapter:
-        W.load_adapter_modules(mods["unet"], {
-            k: v.float().numpy() for k, v in torch.load(
-                adapter, map_location="cpu", weights_only=True).items()})
-        loaded.append("adapter_module")
-    return loaded
 
 
 def main(argv=None, observe: Optional[Callable] = None) -> Dict:

@@ -15,7 +15,9 @@ Phases, one line each (any failure raises and exits non-zero):
      ``actalker_tpu_torch/_build``, one nvcc process per source, all started
      together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the clip, training and lineage paths give it, same inputs,
+     the shapes the clip, training, lineage and CLI paths give it (K1 also
+     at the gather's compacted lengths, K7-LN at the audio encoder's
+     (1500, 384) fp32), same inputs,
      fp32 accumulation in the plain version, with CUDA-event times
      (median), the time of one PyTorch library call computing the same
      function where there is one, and the data-sheet bound (K1, K5 and K6
@@ -51,7 +53,17 @@ Phases, one line each (any failure raises and exits non-zero):
      and MambaUPNet at its published defaults on (8, 8, 8, 512) fp32,
      seeded with the JAX package's initializers, through K5 and through the
      plain versions; launch counts derived from the modules; one V9 loss
-     backward through K5 / K6 against the plain path, by parameter group.
+     backward through K5 / K6 against the plain path, by parameter group;
+  9. the inference CLI (``cli.generate_frames``, then ``write_outputs``
+     where the machine has a video encoder) at full width, 512 px, 14
+     frames, 3 steps, seeded weights, on a written WAV and portrait: mode 0
+     with a fixed face box (the SSM gather: K1's rows must be the derived
+     budgets) and mode 2, each run once to warm up and once counted, stage
+     times printed; then C9, the mode-0 window-step with the gather and
+     with the masked-dense scan (``gather=False``), and C7, the 576 px /
+     25-frame window-step in both configurations with its peak memory,
+     each beside one UNet forward through the kernels and the plain
+     versions; launch counts derived from the model.
 Then a JSON line with the bisect variants, one with the kernels, the card
 line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -60,6 +72,7 @@ cuBLAS and cuDNN).
 """
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -122,6 +135,14 @@ LINEAGE_GRAD_GROUPS = {
     "K6 dA": (r"_unit\.A_logs$", 3e-2),
     "K6 dD": (r"_unit\.Ds$", 3e-2),
 }
+# phase 9: the CLI's mode-0 face box (a detector's box whose area-expanded
+# pose mask, x 1.2 in configs/inference.yaml, covers 31.2% of the 512 px
+# portrait), the SSM budget _capacity_fracs gives it (its res-16 selection
+# is 33% of the tokens; checked in phase 9), and the 576 px / 25-frame
+# window of C7
+CLI_BOX = (136.0, 136.0, 375.0, 375.0)
+C9_CAPACITY = 0.375
+C7_PX, C7_FRAMES = 576, 25
 # a full-width bf16 UNet: kernels and plain versions round activations at
 # different places through ~100 layers
 UNET_TOL = 5e-2
@@ -335,6 +356,13 @@ def fused_launches(*modules):
             for name, kind in kinds.items()}
 
 
+def gathered_rows(l, frac):
+    """K1's token slots for one branch of ``l`` tokens under the capacity
+    fraction ``frac`` (``SS2DCondV10._capacities``)."""
+    k = math.ceil(min(max(frac, 0.0), 1.0) * l)
+    return min(l, -(-k // 8) * 8) if k else 0
+
+
 def kernel_cases(torch, dev, gen):
     """Yield (kernel name, label, kernel fn, plain fn, library fn or None,
     (bound ms, bound by), extras) at the shapes the clip and training paths
@@ -351,10 +379,11 @@ def kernel_cases(torch, dev, gen):
     def rnd(*shape, dtype=bf, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def grouped(dp, hw, bp):
+    def grouped(dp, hw, bp, rows=None):
         # one SS2D block at d_inner = dp: rank = ceil(d_model / 16), L = h*w
-        # tokens + 33 tail tokens (1 id + 32 audio)
-        g, n_tok, rank = 4, hw * hw + 33, -(-dp // 2 // 16)
+        # tokens (or the gather's ``rows`` slots) + 33 tail tokens (1 id +
+        # 32 audio)
+        g, n_tok, rank = 4, (rows or hw * hw) + 33, -(-dp // 2 // 16)
         u = rnd(n_tok, bp, 2 * dp)
         slab = torch.zeros(n_tok, bp, g * 128, device=dev)
         for gi in range(g):
@@ -372,8 +401,8 @@ def kernel_cases(torch, dev, gen):
         bias = torch.randn(g, dp, generator=gen, device=dev) * 0.5
         return (u, slab, dtw, a, d, bias, rank)
 
-    def k1(dp, hw):
-        args = grouped(dp, hw, 56)       # Bp = 4 CFG x 14 frames
+    def k1(dp, hw, rows=None):
+        args = grouped(dp, hw, 56, rows)  # Bp = 4 CFG x 14 frames
         l, bp, r = args[0].shape[0], 56, args[6]
         # per (token, row, group, channel): the rank + 1 lane projection,
         # softplus, and per state exp + mul + 2 FMA (y and h)
@@ -391,6 +420,12 @@ def kernel_cases(torch, dev, gen):
     yield ("ssm_scan_grouped", "Dp=640 L=4096+33 Bp=56 (res-64)", *k1(640, 64))
     yield ("ssm_scan_grouped", "Dp=1280 L=1024+33 Bp=56 (res-32)", *k1(1280, 32))
     yield ("ssm_scan_grouped", "Dp=2560 L=256+33 Bp=56 (res-16)", *k1(2560, 16))
+    # the gather of modes 0 / 1 (phase 9): a 6/16 budget of each resolution's
+    # tokens (the ~31% face box of C9) + the 33-token tail
+    for dp, hw in ((640, 64), (1280, 32), (2560, 16)):
+        k = gathered_rows(hw * hw, C9_CAPACITY)
+        yield ("ssm_scan_grouped", f"Dp={dp} L={k}+33 Bp=56 (gathered res-{hw})",
+               *k1(dp, hw, k))
 
     def k6(dp, hw):
         # training: Bp = 25 frames; gradients through SsmScanGroupedFn.backward
@@ -583,9 +618,12 @@ def kernel_cases(torch, dev, gen):
     # resnets (res-64, res-32, res-16, res-8) and the VAE's 512 px convs.
     # Bounds: bytes once in and once out; K8 by its 2 * M * 9C * Co
     # tensor-core operations.
+    # (and the audio encoder's fp32 LayerNorms over one 30 s window, the
+    # CLI's whisper under the fused-norm configuration)
     for m, c, dtype in ((56 * 4096, 320, bf), (56 * 1024, 640, bf),
                         (56 * 256, 1280, bf), (56 * 256, 2560, bf),
-                        (56 * 32, 1024, torch.float32)):
+                        (56 * 32, 1024, torch.float32),
+                        (1500, 384, torch.float32)):
         x = rnd(m, c, dtype=dtype, scale=2.0) + 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         item = x.element_size()
@@ -662,6 +700,291 @@ def seeded_modules(torch, dev, unet_config=None):
     for i, mod in enumerate(mods.named().values()):
         cast_params_bf16_(random_init_(mod, seed=i, device=dev)).eval()
     return mods
+
+
+def unet_calls(scfg, num_frames):
+    """UNet calls of one ``generate_latents``: per denoise step, the
+    windows in groups of ``windows_per_call``."""
+    from actalker_tpu_torch.pipeline.sampler import make_plan
+
+    plan = make_plan(scfg, num_frames)
+    n_win = plan.window_idx.shape[1]
+    return len(plan.timesteps) * -(-n_win // (scfg.windows_per_call or n_win))
+
+
+def forward_launches(unet):
+    """Launches of K1-K4 in one UNet forward, derived from the model: one K1
+    per SS2DCondV10, one K2 per spatial block's self-attention, one K3 per
+    temporal self-attention, two K4 per GEGLU feed-forward."""
+    from actalker_tpu_torch.models import attention_blocks as ab
+    from actalker_tpu_torch.models.ssm import SS2DCondV10
+
+    mods = list(unet.modules())
+
+    def n(kind):
+        return sum(isinstance(m, kind) for m in mods)
+
+    return {"ssm_scan_grouped": n(SS2DCondV10), "mha": n(ab.BasicTransformerBlock),
+            "frame_attention": n(ab._FrameSelfAttention),
+            "geglu_mlp": 2 * n(ab.FeedForward)}
+
+
+@contextlib.contextmanager
+def k1_rows():
+    """Record the rows (L) of every K1 call the SSM blocks make."""
+    from actalker_tpu_torch.models import ssm
+
+    seen, real = [], ssm.ssm_scan_grouped
+
+    def spy(u_g, *args):
+        seen.append(u_g.shape[0])
+        return real(u_g, *args)
+
+    ssm.ssm_scan_grouped = spy
+    try:
+        yield seen
+    finally:
+        ssm.ssm_scan_grouped = real
+
+
+def phase9(torch, dev, kernels, card):
+    """The inference CLI at full width (modes 0 and 2), C9 (the mode-0
+    window-step with the SSM gather and masked-dense) and C7 (the 576 px /
+    25-frame window-step, default and fused-norm). Returns the CLI runs'
+    launch counts."""
+    import argparse
+    import dataclasses
+    import wave
+
+    import numpy as np
+    from PIL import Image
+
+    from actalker_tpu_torch import cli
+    from actalker_tpu_torch.frontend import video as V
+    from actalker_tpu_torch.models.conditioning import Conditioning
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    out = os.path.join(OUT, "cli")
+    os.makedirs(out, exist_ok=True)
+    # the inputs: 1.2 s of 16 kHz speech-band tones (stdlib wave, read by
+    # load_audio's scipy branch where libav is absent) and a seeded 512 px
+    # portrait
+    rng = np.random.default_rng(9)
+    t = np.arange(int(1.2 * 16000)) / 16000
+    tone = sum(a * np.sin(2 * np.pi * f * t) for a, f in ((0.3, 180), (0.2, 720), (0.1, 2400)))
+    wav = os.path.join(out, "speech.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((tone * 32767 * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)))
+                      .astype(np.int16).tobytes())
+    ref = os.path.join(out, "portrait.png")
+    Image.fromarray((rng.random((PX, PX, 3)) * 255).astype(np.uint8)).save(ref)
+    cfg = dataclasses.replace(
+        cli.load_config(os.path.join(ROOT, "configs", "inference.yaml")),
+        image_size=PX, n_sample_frames=FRAMES, num_inference_steps=STEPS,
+        decode_chunk_size=FRAMES, seed=0, output_dir=out, exp_name="cli",
+        arcface_checkpoint_path="")
+    pipes = {}
+
+    def run_cli(mode):
+        args = argparse.Namespace(config="configs/inference.yaml", ref=ref,
+                                  audio=wav, video=None, mode=mode, batch=False,
+                                  random_weights=True, frame_limit=2 * FRAMES,
+                                  device="cuda")
+        gate = cli.MODE_GATES[mode]
+        cli.generate_frames(cfg, args, gate, pipes, detector=lambda im: CLI_BOX)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        with k1_rows() as rows:
+            res = cli.generate_frames(cfg, args, gate, pipes,
+                                      detector=lambda im: CLI_BOX)
+        counts = {n: k.launches for n, k in kernels.items()}
+        return args, res, counts, sorted(set(rows))
+
+    cli_counts = {n: 0 for n in kernels}
+    mode0 = None
+    for mode in (0, 2):
+        args, res, counts, rows = run_cli(mode)
+        pipe = res["pipe"]
+        calls = unet_calls(cfg.sampler_config(cli.MODE_GATES[mode]), res["num_frames"])
+        per = forward_launches(pipe.m.unet)
+        want = {n: per.get(n, 0) * calls for n in kernels}
+        caps = pipe._capacity_fracs(cfg.sampler_config(cli.MODE_GATES[mode]),
+                                    res["masks"]["audio_mask"], res["masks"]["exp_mask"],
+                                    (PX // 8, PX // 8))
+        # K1's rows: the gather's max(K + 33 tail, 2-row tail of the gated-off
+        # branch) at res-64 / -32 / -16; masked-dense L + 33
+        want_rows = sorted(
+            max(gathered_rows(l, caps[0]) + 33, gathered_rows(l, caps[1]) + 2)
+            if caps else l + 33
+            for l in ((PX // 8 // st) ** 2 for st in pipe.ssm_strides()))
+        frames = res["frames01"]
+        sec = {k: round(v, 4) for k, v in res["seconds"].items()}
+        if V.have_encoder():
+            path = cli.write_outputs(cfg, args, res)
+            sec["write"] = round(res["seconds"]["write"], 4)
+            wrote = f"wrote {os.path.relpath(path, ROOT)}"
+        else:
+            wrote = "no mp4 written"
+        print(f"[9 cli] mode {mode}, full width, {PX} px, {res['num_frames']} frames, "
+              f"{STEPS} steps, random weights: stages (s) {sec} | "
+              f"capacity {caps} | K1 rows {rows} (derived {want_rows}) | launches "
+              f"{counts} (derived {want}: {calls} UNet calls) | {wrote} | {card}",
+              flush=True)
+        if not V.have_encoder():
+            print("[9 cli] no video encoder on this machine: "
+                  "runtime/libactalker_media.so does not load (its libav "
+                  "libraries are absent) and there is no ffmpeg binary, so the "
+                  "CLI stops at the decoded frames; the write stage is not "
+                  "measured here", flush=True)
+        if frames.shape != (res["num_frames"], PX, PX, 3) or not np.isfinite(frames).all():
+            raise RuntimeError(f"CLI mode {mode} frames {frames.shape} not finite / "
+                               "wrong shape")
+        if counts != want:
+            raise RuntimeError(f"CLI mode {mode} launches {counts} != derived {want}")
+        if rows != want_rows or (mode == 0) != (caps is not None):
+            raise RuntimeError(f"CLI mode {mode}: K1 rows {rows} != {want_rows} "
+                               f"(capacity {caps})")
+        if mode == 0 and caps != (C9_CAPACITY, 0.0):
+            raise RuntimeError(f"C9 box gives capacity {caps}, not {C9_CAPACITY}")
+        for n in kernels:
+            cli_counts[n] += counts[n]
+        if mode == 0:
+            mode0 = res
+    pipe = mode0["pipe"]
+
+    # ---- C9: the mode-0 window-step, gather vs masked-dense ----
+    scfg = SamplerConfig(num_inference_steps=STEPS, frames_per_batch=FRAMES,
+                         windows_per_call=1, gate=(1, 0))
+    calls = unet_calls(scfg, FRAMES)
+    mask = mode0["masks"]["audio_mask"]
+    gen_args = (mode0["pre"].ref_img, mode0["id_embed"], *mode0["tokens"],
+                mode0["pose_imgs"], scfg)
+
+    def window_steps(gather):
+        pipe.gather = gather
+        try:
+            pipe.generate_latents(*gen_args, seed=0, audio_mask=mask)  # warm-up
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            lat = pipe.generate_latents(*gen_args, seed=0, audio_mask=mask)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / calls, lat, \
+                kernels["ssm_scan_grouped"].launches
+        finally:
+            pipe.gather = True
+
+    unet = pipe.m.unet
+    g9 = torch.Generator(device=dev).manual_seed(9)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g9, device=dev)
+
+    def forward_inputs(b, f, hw, audio_mask, exp_mask, gate_v):
+        """One window-step's UNet inputs (b = 4 CFG, f frames), seeded;
+        ``gate_v`` 0 zeroes the expression tokens (mode 0)."""
+        cond = Conditioning(rn(b * f, 1, 1024).bfloat16(), rn(b * f, 32, 1024).bfloat16(),
+                            (rn(b * f, 1, 1024) * gate_v).bfloat16(), audio_mask, exp_mask)
+        return (rn(b, f, hw, hw, 8).bfloat16(), torch.tensor(0.5, device=dev), cond,
+                rn(b, 3).bfloat16(),
+                (rn(b, f, hw, hw, unet.config.block_out_channels[0]) * 0.1).bfloat16())
+
+    def forward_check(args, caps):
+        """The UNet forward on ``args`` with the SSM capacity ``caps``,
+        through the kernels and the plain versions: (output, rel L2)."""
+        saved = unet.config.mask_capacity
+        unet.set_mask_capacity(caps)
+        try:
+            with torch.no_grad():
+                y_k = unet(*args)
+                with plain_ops():
+                    y_p = unet(*args)
+        finally:
+            unet.set_mask_capacity(saved)
+        torch.cuda.synchronize()
+        return y_k, errors(y_k, y_p)[1]
+
+    c9 = {}
+    fwd9 = forward_inputs(4, FRAMES, PX // 8, torch.from_numpy(mask).to(dev),
+                          torch.zeros(1, 1, PX, PX, device=dev), 0.0)
+    for name, gather in (("gather", True), ("masked-dense", False)):
+        sec, lat, k1 = window_steps(gather)
+        y, rel = forward_check(fwd9, (C9_CAPACITY, 0.0) if gather else None)
+        c9[name] = (sec, lat, k1, y, rel)
+        print(f"[9 C9] mode 0, face box 31.2% of the image, {name}: seconds per "
+              f"window-step {sec:.4f} s ({calls} UNet calls of 4 CFG x {FRAMES} f x "
+              f"{PX // 8}x{PX // 8}) | K1 launches {k1} (derived "
+              f"{forward_launches(unet)['ssm_scan_grouped'] * calls}) | one forward, "
+              f"kernels vs plain rel_l2 {rel:.3g} (tol {UNET_TOL}) | {card}", flush=True)
+        if k1 != forward_launches(unet)["ssm_scan_grouped"] * calls \
+                or rel > UNET_TOL or not torch.isfinite(lat).all():
+            raise RuntimeError(f"C9 {name}: K1 launches {k1}, rel_l2 {rel}")
+    rel_lat = errors(c9["gather"][1], c9["masked-dense"][1])[1]
+    rel_fwd = errors(c9["gather"][3], c9["masked-dense"][3])[1]
+    print(f"[9 C9] gather vs masked-dense: window-step {c9['gather'][0]:.4f} s vs "
+          f"{c9['masked-dense'][0]:.4f} s ({c9['masked-dense'][0] / c9['gather'][0]:.3f}x) "
+          f"| latents rel_l2 {rel_lat:.3g}, one forward rel_l2 {rel_fwd:.3g} "
+          f"(tol {UNET_TOL}) | {card}", flush=True)
+    if rel_fwd > UNET_TOL or rel_lat > UNET_TOL:
+        raise RuntimeError("the gather disagrees with the masked-dense scan")
+    del c9, gen_args, mode0, fwd9
+    torch.cuda.empty_cache()
+
+    # ---- C7: the 576 px / 25-frame window-step (S = 5184) ----
+    scfg7 = SamplerConfig(num_inference_steps=STEPS, frames_per_batch=C7_FRAMES,
+                          windows_per_call=1, gate=(1, 1))
+    calls7 = unet_calls(scfg7, C7_FRAMES)
+    r7 = np.random.default_rng(7)
+    ins7 = (r7.standard_normal((C7_PX, C7_PX, 3)).astype(np.float32) * 0.2,
+            r7.standard_normal(512).astype(np.float32),
+            r7.standard_normal((C7_FRAMES, 32, 1024)).astype(np.float32),
+            np.zeros((C7_FRAMES, 32, 1024), np.float32),
+            r7.standard_normal((C7_FRAMES, 1, 1024)).astype(np.float32),
+            np.zeros((C7_FRAMES, 1, 1024), np.float32),
+            r7.random((C7_FRAMES, C7_PX, C7_PX, 3)).astype(np.float32), scfg7)
+    ones7 = torch.ones(1, 1, C7_PX, C7_PX, device=dev)
+    hw7 = C7_PX // 8
+    fwd7 = forward_inputs(4, C7_FRAMES, hw7, ones7, ones7, 1.0)
+    for label, ctx in (("default", contextlib.nullcontext), ("fused-norm", fused_norm_config)):
+        with ctx():
+            pipe.generate_latents(*ins7, seed=0)                     # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            lat = pipe.generate_latents(*ins7, seed=0)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / calls7
+            counts = {n: k.launches for n, k in kernels.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            _, rel = forward_check(fwd7, None)
+        per = forward_launches(unet)
+        want = {n: per.get(n, 0) * calls7 for n in kernels}
+        if label != "default":
+            parts = ((calls7, fused_launches(unet)), (2, fused_launches(pipe.m.vae.encoder)),
+                     (1, fused_launches(pipe.m.id_proj, pipe.m.pose_guider)))
+            for n in FUSED_KERNELS:
+                want[n] = sum(c * p[n] for c, p in parts)
+        print(f"[9 C7] {C7_PX} px / {C7_FRAMES} frames, {label}: seconds per "
+              f"window-step {sec:.4f} s ({calls7} UNet calls of 4 CFG x {C7_FRAMES} f x "
+              f"{hw7}x{hw7}, S = {hw7 * hw7}) | peak max_memory_allocated "
+              f"{peak:.2f} GiB | latents finite {bool(torch.isfinite(lat).all())} | one "
+              f"forward, kernels vs plain rel_l2 {rel:.3g} (tol {UNET_TOL}) | launches "
+              f"{counts} (derived {want}) | {card}", flush=True)
+        if not torch.isfinite(lat).all() or rel > UNET_TOL:
+            raise RuntimeError(f"C7 {label}: latents not finite or rel_l2 {rel}")
+        if counts != want:
+            raise RuntimeError(f"C7 {label}: launches {counts} != derived {want}")
+    del pipe, pipes, unet, lat, fwd7
+    torch.cuda.empty_cache()
+    shutil.rmtree(OUT, ignore_errors=True)
+    return cli_counts
 
 
 def main() -> int:
@@ -838,8 +1161,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # launches per UNet forward: 15 SS2D blocks, 16 spatial self-attentions,
     # 16 temporal blocks, 48 feed-forwards of two launches each
-    per_forward = {"ssm_scan_grouped": 15, "mha": 16, "frame_attention": 16,
-                   "geglu_mlp": 96}
+    per_forward = forward_launches(mods.unet)
     print(f"[5 main] {STEPS} steps x {n_win} windows of (4 CFG x {FRAMES} f x "
           f"{PX // 8}x{PX // 8}) = {unet_calls} UNet calls | launches {counts} "
           f"| init {init_s:.1f}s | {card}", flush=True)
@@ -1032,8 +1354,6 @@ def main() -> int:
     print(f"[7 train] launches per micro-step {per_step[-1]} (expected {expect})"
           f" | moved after each micro-step "
           f"{[any(m.values()) for m in seen['moved']]}", flush=True)
-    import math
-
     if len(recs) != TRAIN_MICRO_STEPS or not all(math.isfinite(r["loss"])
                                                  for r in recs):
         raise RuntimeError("training losses missing or not finite")
@@ -1160,6 +1480,9 @@ def main() -> int:
         lineage_counts[n] += counts[n]
     del v9, named, gg_k, gg_p, x, cond, v9_args, cot
 
+    # ---- 9: the inference CLI, C9 and C7 ----
+    cli_counts = phase9(torch, dev, kernels, card)
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
                     else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
@@ -1183,7 +1506,8 @@ def main() -> int:
         "launches_by_path": {"clip": clip_counts[n],
                              "clip_fused": fused_counts[n],
                              "train": train_counts[n],
-                             "lineage": lineage_counts[n]},
+                             "lineage": lineage_counts[n],
+                             "cli": cli_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],

@@ -151,7 +151,8 @@ def test_decode_last_chunk_at_its_own_length(pipes):
 
 def test_generate_mode0_face_box_masked_dense_matches_gather(pipes):
     """Mode 0 with a face-box audio mask: the JAX side takes the SSM
-    static-capacity gather; the port's masked-dense scan must agree. One
+    static-capacity gather; the port's masked-dense scan (``gather=False``;
+    its gather is held in test_torch_noise_capacity.py) must agree. One
     window per UNet call on the port side (the output does not depend on
     how windows are batched)."""
     jpipe, tpipe, _ = pipes
@@ -159,8 +160,12 @@ def test_generate_mode0_face_box_masked_dense_matches_gather(pipes):
     box[..., 8:40, 8:56] = 1.0
     assert jpipe._capacity_fracs(JSamplerConfig(gate=(1, 0)), box, None,
                                  (8, 8)) is not None
-    lat_j, lat_t = _run_both(jpipe, tpipe, gate=(1, 0), audio_mask=box,
-                             windows_per_call=1)
+    tpipe.gather = False
+    try:
+        lat_j, lat_t = _run_both(jpipe, tpipe, gate=(1, 0), audio_mask=box,
+                                 windows_per_call=1)
+    finally:
+        tpipe.gather = True
     _rel_close(lat_t, lat_j)
 
 
