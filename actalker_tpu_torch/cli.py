@@ -12,17 +12,22 @@ card (``--device cuda``, the default, in the config's ``weight_dtype``) or
 on the CPU in fp32. A config key ``micro_model: true`` selects the micro
 UNet and the tiny VAE (tests, smoke runs).
 
-``generate_frames`` runs the stages up to the decoded frames (a caller may
-hand it the face detector and reads the per-stage times), ``write_outputs``
-writes the mp4s. Not ported yet: the frame-level post-passes (teeth,
-frame BFR, RIFE) and the reference-image BFR; a config that asks for them
-is told so.
+``generate_frames`` runs the stages to the finished frames (a caller may
+hand it the face detector and reads the per-stage times): the learned face
+detector (YOLOv5-face, else SCRFD, else the cascade), the preprocessing,
+the reference-image BFR before the ArcFace crop (``use_bfr``), the UNet
+and the decode, then ``postprocess_frames``: teeth enhancement
+(``use_teeth_enhance``), frame BFR (``extras.use_bfr_frames``) and RIFE
+frame doubling (``use_interframe``), each only where its checkpoint exists.
+``write_outputs`` writes the mp4s. The networks of the face stack and the
+post-passes run in fp32.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import sys
 import time
 from typing import Dict
 
@@ -33,10 +38,16 @@ from actalker_tpu_torch.config import MODE_GATES, InferenceConfig, load_config
 from actalker_tpu_torch.frontend import audio as A
 from actalker_tpu_torch.frontend import preprocess as P
 from actalker_tpu_torch.frontend import video as V
-from actalker_tpu_torch.frontend.face import detect_face, resolve_face_detector
+from actalker_tpu_torch.frontend.enhance import enhance_face, enhance_teeth
+from actalker_tpu_torch.frontend.face import (
+    NoCascadeModelError, detect_face, resolve_face_detector)
+from actalker_tpu_torch.frontend.landmarks import (
+    NoFaceError, resolve_landmark_estimator)
+from actalker_tpu_torch.io import init as I
 from actalker_tpu_torch.io.init import (
     cast_params_bf16_, load_checkpoints, load_state_file, random_init_)
 from actalker_tpu_torch.models.arcface import iresnet50
+from actalker_tpu_torch.models.rife import interpolate_pairs
 from actalker_tpu_torch.models.unet import UNetConfig
 from actalker_tpu_torch.models.vae import VAEConfig
 from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline, PipelineModules
@@ -119,11 +130,69 @@ def identity_embedding(cfg: InferenceConfig, head_crop: np.ndarray,
         return net(x)[0].float().cpu().numpy()
 
 
-def _unported_passes(cfg: InferenceConfig) -> list:
-    asked = {"use_bfr": cfg.use_bfr, "use_teeth_enhance": cfg.use_teeth_enhance,
-             "use_interframe": cfg.use_interframe,
-             "use_bfr_frames": bool(cfg.extras.get("use_bfr_frames"))}
-    return [k for k, on in asked.items() if on]
+def _have(path: str) -> bool:
+    return bool(path) and os.path.exists(path)
+
+
+def _numpy_fn(net, device: torch.device):
+    """numpy in, numpy out over ``net`` on ``device`` (the enhance glue's
+    callables); a tuple of outputs stays a tuple."""
+    @torch.no_grad()
+    def fn(x):
+        y = net(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
+        if isinstance(y, tuple):
+            return tuple(t.cpu().numpy() for t in y)
+        return y.cpu().numpy()
+    return fn
+
+
+def face_landmarks(estimator, image_u8: np.ndarray, box):
+    """The estimator's (5, 2) landmarks, or None where its host code finds
+    no face or a degenerate box (``enhance_face`` then aligns on the box
+    prior, which is said on stderr)."""
+    try:
+        return estimator(image_u8, box)
+    except (NoFaceError, np.linalg.LinAlgError) as e:
+        print(f"{TAG} landmarks unavailable ({e}); aligning on the face-box "
+              "prior", file=sys.stderr)
+        return None
+
+
+def _u8(frame01: np.ndarray) -> np.ndarray:
+    return (frame01 * 255).round().astype(np.uint8)
+
+
+def postprocess_frames(cfg: InferenceConfig, frames01: np.ndarray, face_box,
+                       landmarks=None, device=torch.device("cuda"),
+                       stages=None) -> np.ndarray:
+    """The post-passes on the decoded frames ((F, H, W, 3) in [0, 1]), in
+    the JAX CLI's order, each only where it is asked for and its checkpoint
+    exists: teeth enhancement on the lower half of ``face_box``
+    (``use_teeth_enhance``), frame BFR aligned on ``landmarks`` (5, 2) or
+    the box prior (``extras.use_bfr_frames``; the reference enhances only
+    the reference image), then RIFE (``use_interframe``: 2F - 1 frames).
+    ``stages`` (a ``_Stages``) times each pass."""
+    stages = stages or _Stages(device)
+    if cfg.use_teeth_enhance and _have(cfg.teeth_checkpoint_path):
+        with stages("teeth"):
+            fn = _numpy_fn(I.load_teeth(cfg.teeth_checkpoint_path, device), device)
+            x1, y1, x2, y2 = face_box
+            mouth = (x1, y1 + (y2 - y1) / 2, x2, y2)
+            frames01 = np.stack([enhance_teeth(_u8(f), mouth, fn) for f in frames01]
+                                ).astype(np.float32) / 255
+    if cfg.extras.get("use_bfr_frames") and _have(cfg.bfr_checkpoint_path):
+        with stages("bfr_frames"):
+            fn = _numpy_fn(I.load_bfr(cfg.bfr_checkpoint_path, device), device)
+            frames01 = np.stack([enhance_face(_u8(f), face_box, fn, landmarks=landmarks)
+                                 for f in frames01]).astype(np.float32) / 255
+    if cfg.use_interframe and _have(cfg.rife_checkpoint_path):
+        with stages("rife"):
+            net = I.load_rife(cfg.rife_checkpoint_path, device)
+            with torch.no_grad():
+                frames01 = interpolate_pairs(
+                    net, torch.from_numpy(np.ascontiguousarray(frames01, np.float32))
+                    .to(device)).cpu().numpy()
+    return frames01
 
 
 class _Stages:
@@ -152,25 +221,54 @@ def generate_frames(cfg: InferenceConfig, args, gate, pipe_cache: Dict,
     sampler took, and ``seconds`` by stage."""
     device = resolve_device(args.device)
     stages = _Stages(device)
-    if _unported_passes(cfg):
-        print(f"{TAG} {_unported_passes(cfg)} asked for: the post-processing "
-              "passes are not ported yet (ROADMAP queue 1, item 4); skipped")
-    with stages("preprocess"):
+    with stages("detect"):
         if detector is None:
             try:
                 detector = resolve_face_detector(cfg.det_checkpoint_path,
-                                                 cfg.scrfd_checkpoint_path)
-            except RuntimeError as e:
+                                                 cfg.scrfd_checkpoint_path, device)
+            except NoCascadeModelError as e:
                 print(f"{TAG} face detector unavailable ({e}); full-image bbox")
         ref_rgb = P.read_image(args.ref)
         bbox = detect_face(ref_rgb, detector) if detector is not None else None
-        if bbox is None:
-            print(f"{TAG} no face detected; using full-image bbox")
+    if bbox is None:
+        print(f"{TAG} no face detected; using full-image bbox")
+    with stages("preprocess"):
         pre = P.preprocess_reference_image(
             ref_rgb, bbox, image_size=cfg.image_size, area=cfg.area,
             crop=cfg.crop, expand_ratio=cfg.expand_ratio,
             aspect_type=cfg.aspect_type)
-        h, w = pre.ref_img.shape[:2]
+    h, w = pre.ref_img.shape[:2]
+    # landmarks come from the learned networks only (a detector with
+    # ``detect``), as in the JAX CLI
+    estimator = None
+    if hasattr(detector, "detect") and (
+            (cfg.use_bfr and _have(cfg.bfr_checkpoint_path))
+            or cfg.use_teeth_enhance or cfg.extras.get("use_bfr_frames")):
+        with stages("landmarks"):
+            estimator = resolve_landmark_estimator(
+                cfg.det_checkpoint_path, cfg.scrfd_checkpoint_path,
+                cfg.face_landmark_checkpoint_path, device)
+    if cfg.use_bfr and _have(cfg.bfr_checkpoint_path):
+        # BFR of the processed reference image before the ArcFace crop
+        # (the reference's test_preprocess.py:286-304), aligned on the
+        # landmarks of the face re-detected in it
+        u8 = _u8(pre.ref_img * 0.5 + 0.5)
+        lm5, rbox = None, pre.bbox_ref
+        if estimator is not None:
+            with stages("landmarks"):
+                rbox = detect_face(u8, detector) or rbox
+                lm5 = face_landmarks(estimator, u8, rbox)
+        with stages("bfr_ref"):
+            bfr = _numpy_fn(I.load_bfr(cfg.bfr_checkpoint_path, device), device)
+            enhanced = enhance_face(u8, rbox, bfr, landmarks=lm5)
+            pre.ref_img = enhanced.astype(np.float32) / 127.5 - 1.0
+            # the ArcFace crop, refreshed from the enhanced image
+            bx1, by1, bx2, by2 = [int(max(v, 0)) for v in pre.bbox_ref]
+            head = enhanced[by1:max(by2, by1 + 1), bx1:max(bx2, bx1 + 1)]
+            if head.size:
+                pre.head_crop = (P.resize_image(head, (112, 112)).astype(np.float32)
+                                 / 127.5 - 1.0)
+    with stages("preprocess"):
         id_embed = identity_embedding(cfg, pre.head_crop, device)
     with stages("mel"):
         mel, audio_len = A.whisper_features(args.audio)
@@ -234,10 +332,20 @@ def generate_frames(cfg: InferenceConfig, args, gate, pipe_cache: Dict,
     with stages("decode"):
         frames01 = np.clip(pipe.decode_latents(latents, cfg.decode_chunk_size)
                            * 0.5 + 0.5, 0, 1)
-    return dict(frames01=frames01, pre=pre, pipe=pipe, num_frames=num_frames,
-                id_embed=id_embed, tokens=(audio_tok, audio_unc, vasa_tok, vasa_unc),
+    # the frame passes align on the first frame's landmarks
+    flm5 = None
+    if estimator is not None and (cfg.use_teeth_enhance
+                                  or cfg.extras.get("use_bfr_frames")):
+        with stages("landmarks"):
+            flm5 = face_landmarks(estimator, _u8(frames01[0]), pre.bbox_ref)
+    decoded = frames01
+    frames01 = postprocess_frames(cfg, frames01, pre.bbox_ref, landmarks=flm5,
+                                  device=device, stages=stages)
+    return dict(frames01=frames01, decoded=decoded, pre=pre, pipe=pipe,
+                num_frames=num_frames, id_embed=id_embed,
+                tokens=(audio_tok, audio_unc, vasa_tok, vasa_unc),
                 pose_imgs=pose_imgs, masks=masks, latents=latents,
-                seconds=stages.seconds, stages=stages)
+                landmarks=flm5, seconds=stages.seconds, stages=stages)
 
 
 def write_outputs(cfg: InferenceConfig, args, run: Dict) -> str:

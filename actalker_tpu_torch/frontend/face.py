@@ -4,10 +4,9 @@
 The detector is pluggable (``FaceDetector``: any callable ``image -> (x1,
 y1, x2, y2) | None``); a None result falls back to the full image, as the
 reference does without its alignment models (``test_preprocess.py:222-225``).
-``resolve_face_detector`` gives the Viola-Jones cascade over OpenCV's Haar
-models. The learned detectors of the JAX package (YOLOv5-face, SCRFD) are
-not ported yet: a configured checkpoint of theirs is reported and the
-cascade serves instead.
+``resolve_face_detector`` takes the reference's order (``align.py:270-274``):
+YOLOv5-face where its checkpoint exists, else SCRFD-10G-bnkps, else the
+Viola-Jones cascade over OpenCV's Haar models, with a warning.
 """
 from __future__ import annotations
 
@@ -18,6 +17,10 @@ from typing import Optional, Protocol, Tuple
 import numpy as np
 
 Box = Tuple[float, float, float, float]
+
+
+class NoCascadeModelError(RuntimeError):
+    """The system has no Haar cascade model for the Viola-Jones detector."""
 
 
 class FaceDetector(Protocol):
@@ -37,7 +40,7 @@ class CascadeFaceDetector:
 
         path = next((p for p in self.CASCADE_PATHS if os.path.exists(p)), None)
         if path is None:
-            raise RuntimeError("no haarcascade model found on this system")
+            raise NoCascadeModelError("no haarcascade model found on this system")
         self.vj = ViolaJones(CascadeModel.load(path))
         self.max_side = max_side
 
@@ -57,28 +60,39 @@ class CascadeFaceDetector:
 
 def detect_face(image: np.ndarray,
                 detector: Optional[FaceDetector] = None) -> Optional[Box]:
-    """The detector's box, or None (no face, no detector, or it failed)."""
+    """The detector's box, or None (no face, no detector, or the image is
+    one the host code rejects). A device error propagates."""
     if detector is None:
         try:
             detector = CascadeFaceDetector()
-        except RuntimeError:
+        except NoCascadeModelError:
             return None
     try:
         return detector(image)
-    except (RuntimeError, ValueError, IndexError):
+    except (ValueError, IndexError):
         return None
 
 
-def resolve_face_detector(det_path: str = "",
-                          scrfd_path: str = "") -> FaceDetector:
-    """The Viola-Jones cascade, with a warning: its boxes are markedly less
-    accurate than the reference's learned detectors, whose ports wait
-    (configured checkpoints of theirs are named in the warning). Raises
-    RuntimeError where the system has no cascade model."""
-    pending = [p for p in (det_path, scrfd_path) if p and os.path.exists(p)]
-    print("[actalker_tpu_torch] WARNING: face boxes come from the Viola-Jones "
-          "cascade" + (f"; the learned detectors of {pending} are not ported "
-                       "yet" if pending else "")
-          + ": boxes, region masks and the ArcFace crop are less accurate "
-          "than the reference's", file=sys.stderr)
+def resolve_face_detector(det_path: str = "", scrfd_path: str = "",
+                          device="cuda") -> FaceDetector:
+    """The best detector available: YOLOv5-face from ``det_path``, else
+    SCRFD-10G-bnkps from ``scrfd_path`` (each on ``device``, fp32), else the
+    Viola-Jones cascade with a warning (its boxes are markedly less accurate).
+    Raises NoCascadeModelError where it comes to the cascade and the system
+    has no cascade model."""
+    from actalker_tpu_torch.io import init
+
+    if det_path and os.path.exists(det_path):
+        from actalker_tpu_torch.models.yoloface import YoloFaceDetector
+
+        return YoloFaceDetector(init.load_yoloface(det_path, device))
+    if scrfd_path and os.path.exists(scrfd_path):
+        from actalker_tpu_torch.models.scrfd import ScrfdDetector
+
+        return ScrfdDetector(init.load_scrfd(scrfd_path, device))
+    print("[actalker_tpu_torch] WARNING: no face-detector checkpoint (yoloface "
+          f"at {det_path or '<unset>'}, scrfd at {scrfd_path or '<unset>'}): "
+          "face boxes come from the Viola-Jones cascade, and boxes, region "
+          "masks, the ArcFace crop and the BFR alignment are markedly less "
+          "accurate than the reference's", file=sys.stderr)
     return CascadeFaceDetector()

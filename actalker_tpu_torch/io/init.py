@@ -16,12 +16,16 @@ files' own, with ``strict=True``: the six ``.pth`` files
 exist, the SVD-XT VAE's ``.safetensors`` (read by ``read_safetensors``,
 without the ``safetensors`` package), whisper-tiny's ``pytorch_model.bin``
 and the VASA MX31c checkpoint's ``generator`` / ``pose_model`` dicts.
+``load_yoloface`` / ``load_scrfd`` / ``load_face_landmarker`` /
+``load_bfr`` / ``load_teeth`` / ``load_rife`` load the face stack's and
+the post-passes' files the same way, in fp32.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 from typing import Dict, Mapping, Optional, Set
 
 import torch
@@ -237,3 +241,75 @@ def load_checkpoints(cfg, modules: Mapping[str, nn.Module]) -> Optional[Set[str]
             modules[name].load_state_dict(sd, strict=True)
             loaded.add(name)
     return loaded
+
+
+# ------------------------------------------------ face stack and post-passes
+
+def _load_net(build, sd: Mapping[str, torch.Tensor], device) -> nn.Module:
+    """``build()`` on the meta device, ``sd`` loaded into it with
+    ``strict=True``, then on ``device`` in fp32 for inference."""
+    with torch.device("meta"):
+        net = build()
+    net.load_state_dict(sd, strict=True, assign=True)
+    return net.to(device=device, dtype=torch.float32).eval()
+
+
+def load_yoloface(path: str, device):
+    """``yolov5m-face.pth`` (``model.N.*``; a file without the ``model.``
+    prefix takes it) -> YoloFaceNet (m: 0.75 / 0.67)."""
+    from actalker_tpu_torch.models.yoloface import YoloFaceNet
+
+    sd = {k if k.startswith("model.") else f"model.{k}": v
+          for k, v in load_state_file(path).items()}
+    return _load_net(YoloFaceNet, sd, device)
+
+
+def load_scrfd(path: str, device):
+    """``scrfd_10g_bnkps.pth`` -> ScrfdNet (10G-bnkps)."""
+    from actalker_tpu_torch.models.scrfd import ScrfdNet
+
+    return _load_net(ScrfdNet, load_state_file(path), device)
+
+
+def load_face_landmarker(path: str, device):
+    """The RTMPose face head (``face_landmark_checkpoint_path``) ->
+    RTMPoseNet at RTMPose-m face6."""
+    from actalker_tpu_torch.frontend.landmarks import face6_config
+    from actalker_tpu_torch.models.rtmpose import RTMPoseNet
+
+    return _load_net(lambda: RTMPoseNet(face6_config()), load_state_file(path), device)
+
+
+def load_bfr(path: str, device):
+    """``enhance-512.pth`` -> GPENGenerator, its size, style width, MLP depth
+    and channel multiplier read off the file (512, 512, 8 and 2 there)."""
+    from actalker_tpu_torch.models.stylegan2 import GPENGenerator, channels
+
+    sd = load_state_file(path)
+    # one conv weight an encoder level: ecd0.0.0 (1x1), ecdK.0.1 (after the blur)
+    size = 2 ** (1 + sum(re.fullmatch(r"ecd\d+\.0\.[01]\.weight", k) is not None
+                         for k in sd))
+    kw = dict(size=size, style_dim=sd["final_linear.0.weight"].shape[0],
+              n_mlp=sum(re.fullmatch(r"generator\.style\.\d+\.weight", k) is not None
+                        for k in sd),
+              channel_multiplier=sd["ecd0.0.0.weight"].shape[0] // channels(1)[size])
+    return _load_net(lambda: GPENGenerator(**kw), sd, device)
+
+
+def load_teeth(path: str, device):
+    """The teeth enhancer's state dict (the PNNX export's flat names) ->
+    TeethEnhancer."""
+    from actalker_tpu_torch.models.teeth import TeethEnhancer
+
+    return _load_net(TeethEnhancer, load_state_file(path), device)
+
+
+def load_rife(path: str, device):
+    """``flownet.pkl`` (its ``module.`` prefix stripped) -> IFNet, its
+    width read off the file (c = 90 there)."""
+    from actalker_tpu_torch.models.rife import IFNet
+
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in load_state_file(path).items()}
+    c = 2 * sd["block0.conv0.0.0.weight"].shape[0]
+    return _load_net(lambda: IFNet(c), sd, device)

@@ -71,6 +71,26 @@ _KINDS = {
     "raw": (np.asarray, np.asarray),
     # ArcFace's fc: torch (out, C*H*W) <-> flax kernel (H*W*C, out)
     "fc_chw": (lambda w: _fc_chw_to_hwc(w), lambda k: _fc_hwc_to_chw(k)),
+    # torch's transposed conv (in, out, kh, kw) flips its kernel; flax's
+    # ConvTranspose (kh, kw, in, out) does not, so the layout carries the
+    # flip
+    "convT_flip": (lambda w: np.flip(np.transpose(w, (2, 3, 0, 1)), (0, 1)),
+                   lambda k: np.transpose(np.flip(k, (0, 1)), (2, 3, 0, 1))),
+    # StyleGAN2's modulated conv (1, out, in, k, k), the noise weight (1,),
+    # ToRGB's bias (1, 3, 1, 1) and the constant input (1, C, 4, 4)
+    "modconv": (lambda w: t_conv2d(w[0]),
+                lambda k: np.transpose(k, (3, 2, 0, 1))[None]),
+    "scalar": (lambda w: w.reshape(()), lambda k: k.reshape(1)),
+    "rgb_bias": (lambda w: w.reshape(-1), lambda k: k.reshape(1, -1, 1, 1)),
+    "nchw": (lambda w: np.transpose(w, (0, 2, 3, 1)),
+             lambda k: np.transpose(k, (0, 3, 1, 2))),
+    # the BatchNorm of a conv the JAX package folds (``_fold``): exported
+    # as the identity over the folded conv (weight 1, mean 0, var 1 - eps,
+    # the folded bias as its bias)
+    "bn_one": (None, np.ones_like),
+    "bn_zero": (None, np.zeros_like),
+    "bn_var_0.001": (None, lambda b: np.full_like(b, 1.0 - 1e-3)),
+    "bn_var_1e-05": (None, lambda b: np.full_like(b, 1.0 - 1e-5)),
 }
 
 
@@ -79,15 +99,23 @@ class _CaptureSD:
     assignments a converter would make, instead of converting — the shared
     spec that makes every converter invertible (``export_state_dict``).
 
-    ``__contains__`` answers True so every OPTIONAL module's entries are
-    captured; export prunes entries whose flax path is absent from the
-    actual params tree."""
+    Without ``keys``, ``__contains__`` answers True so every OPTIONAL
+    module's entries are captured; export prunes entries whose flax path is
+    absent from the actual params tree. With ``keys`` (the port module's
+    state-dict keys) it holds exactly those, so a converter that discovers
+    its modules from the keys (``for k in sd``, ``while key in sd``) sees
+    the checkpoint's layout."""
 
-    def __init__(self):
+    def __init__(self, keys=None):
         self.spec = []  # (flax_path, torch_key, kind)
+        self.keys = None if keys is None else list(keys)
+        self._held = set(self.keys or ())
 
     def __contains__(self, key) -> bool:
-        return True
+        return self.keys is None or key in self._held
+
+    def __iter__(self):
+        return iter(self.keys or ())
 
     def __getitem__(self, key):  # never materialized in capture mode
         raise KeyError(key)
@@ -416,9 +444,7 @@ def convert_arcface(sd, layers=(3, 4, 14, 3)) -> Dict:
     dst: Dict = {}
 
     def bn(prefix, src):
-        _norm(dst, prefix, sd, src)
-        _put(dst, sd, f"{prefix}/mean", f"{src}.running_mean")
-        _put(dst, sd, f"{prefix}/var", f"{src}.running_var")
+        _bn_stats(dst, prefix, sd, src)
 
     _put(dst, sd, "conv1/kernel", "conv1.weight", "conv2")
     bn("bn1", "bn1")
@@ -442,6 +468,268 @@ def convert_arcface(sd, layers=(3, 4, 14, 3)) -> Dict:
     return {"params": dst}
 
 
+# ------------------------------------------------ face stack and post-passes
+
+def _fold(dst: Dict, sd: Mapping, path: str, conv: str, bn: str,
+          eps: float) -> None:
+    """A conv + BatchNorm pair of the checkpoint -> one flax conv with the
+    BatchNorm folded in (``path/kernel``, ``path/bias``). Exported as the
+    folded kernel and an identity BatchNorm (kinds ``bn_*``)."""
+    if isinstance(sd, _CaptureSD):
+        sd.spec += [(f"{path}/kernel", f"{conv}.weight", "conv2"),
+                    (f"{path}/bias", f"{bn}.bias", "raw"),
+                    (f"{path}/bias", f"{bn}.weight", "bn_one"),
+                    (f"{path}/bias", f"{bn}.running_mean", "bn_zero"),
+                    (f"{path}/bias", f"{bn}.running_var", f"bn_var_{eps:g}")]
+        return
+    w = np.asarray(sd[f"{conv}.weight"], np.float32)
+    g, b, m, v = (np.asarray(sd[f"{bn}.{n}"], np.float32) for n in
+                  ("weight", "bias", "running_mean", "running_var"))
+    s = g / np.sqrt(v + eps)
+    bias = b - m * s
+    if f"{conv}.bias" in sd:
+        bias = bias + np.asarray(sd[f"{conv}.bias"], np.float32) * s
+    set_in(dst, f"{path}/kernel", t_conv2d(w * s[:, None, None, None]))
+    set_in(dst, f"{path}/bias", bias)
+
+
+def _bn_stats(dst: Dict, prefix: str, sd: Mapping, src: str) -> None:
+    _norm(dst, prefix, sd, src)
+    _put(dst, sd, f"{prefix}/mean", f"{src}.running_mean")
+    _put(dst, sd, f"{prefix}/var", f"{src}.running_var")
+
+
+def convert_rife(sd) -> Dict:
+    """RIFE ``flownet.pkl`` (``module.`` stripped) -> IFNet params. The
+    transposed convs' kernels are flipped (kind ``convT_flip``), which the
+    JAX package's own ``convert_rife`` omits."""
+    dst: Dict = {}
+
+    def convprelu(prefix, src):
+        _conv2(dst, f"{prefix}/conv", sd, f"{src}.0")
+        _put(dst, sd, f"{prefix}/prelu/alpha", f"{src}.1.weight")
+
+    for bi in range(3):
+        p = f"block{bi}"
+        convprelu(f"{p}/conv0_0", f"{p}.conv0.0")
+        convprelu(f"{p}/conv0_1", f"{p}.conv0.1")
+        for ci in range(4):
+            for j in range(2):
+                convprelu(f"{p}/convblock{ci}_{j}", f"{p}.convblock{ci}.{j}")
+        for t in ("conv1", "conv2"):
+            for j, idx in ((0, 0), (1, 2)):
+                _put(dst, sd, f"{p}/{t}_{j}/kernel", f"{p}.{t}.{idx}.weight",
+                     "convT_flip")
+                _put(dst, sd, f"{p}/{t}_{j}/bias", f"{p}.{t}.{idx}.bias")
+            _put(dst, sd, f"{p}/{t}_prelu/alpha", f"{p}.{t}.1.weight")
+    return {"params": dst}
+
+
+def convert_teeth(sd) -> Dict:
+    """The teeth enhancer's PNNX export (flat ``encoder_blocks_K_J_*`` /
+    ``convbn2d_N`` / ``*_mid_blocks_*`` / ``decoder_conv_out4_*``
+    attributes) -> TeethEnhancer params."""
+    dst: Dict = {}
+
+    def res(prefix, norm_src, convbn_idx, conv2_src, residual_src=None):
+        _bn_stats(dst, f"{prefix}/norm1", sd, norm_src)
+        _conv2(dst, f"{prefix}/conv1", sd, f"convbn2d_{convbn_idx}")
+        _conv2(dst, f"{prefix}/conv2", sd, conv2_src)
+        if residual_src is not None:
+            _conv2(dst, f"{prefix}/residual_func", sd, residual_src)
+
+    def attn(prefix, src):
+        _bn_stats(dst, f"{prefix}/norm", sd, f"{src}_norm")
+        for nm in ("q", "k", "v", "proj_out"):
+            _conv2(dst, f"{prefix}/{nm}", sd, f"{src}_{nm}")
+
+    _conv2(dst, "encoder_conv_in", sd, "encoder_conv_in")
+    res("encoder_res_0", "encoder_blocks_0_0_norm1", 0, "encoder_blocks_0_0_conv2")
+    for i in range(1, 6):
+        _conv2(dst, f"encoder_down_{i}", sd, f"encoder_blocks_{i}_0_conv")
+        res(f"encoder_res_{i}", f"encoder_blocks_{i}_1_norm1", i,
+            f"encoder_blocks_{i}_1_conv2",
+            f"encoder_blocks_{i}_1_residual_func" if i < 5 else None)
+    attn("encoder_attn", "encoder_blocks_5_2")
+    res("encoder_mid_res1", "encoder_mid_blocks_0_norm1", 6,
+        "encoder_mid_blocks_0_conv2")
+    attn("encoder_mid_attn", "encoder_mid_blocks_1")
+    res("encoder_mid_res2", "encoder_mid_blocks_2_norm1", 7,
+        "encoder_mid_blocks_2_conv2")
+    _bn_stats(dst, "encoder_out_norm", sd, "encoder_conv_out_0")
+    _conv2(dst, "encoder_conv_out", sd, "encoder_conv_out_2")
+    _conv2(dst, "decoder_conv_in", sd, "decoder_conv_in")
+    res("decoder_mid_res1", "decoder_mid_blocks_0_norm1", 8,
+        "decoder_mid_blocks_0_conv2")
+    attn("decoder_mid_attn", "decoder_mid_blocks_1")
+    res("decoder_mid_res2", "decoder_mid_blocks_2_norm1", 9,
+        "decoder_mid_blocks_2_conv2")
+    res("decoder_res_0", "decoder_blocks_0_0_norm1", 10, "decoder_blocks_0_0_conv2")
+    attn("decoder_attn", "decoder_blocks_0_1")
+    for i in range(1, 6):
+        _conv2(dst, f"decoder_up_{i}", sd, f"decoder_blocks_{i}_0_conv")
+        res(f"decoder_res_{i}", f"decoder_blocks_{i}_1_norm1", 10 + i,
+            f"decoder_blocks_{i}_1_conv2",
+            f"decoder_blocks_{i}_1_residual_func" if i > 1 else None)
+    _bn_stats(dst, "decoder_out_norm", sd, "decoder_conv_out4_0")
+    _conv2(dst, "decoder_conv_out", sd, "decoder_conv_out4_1")
+    return {"params": dst}
+
+
+def convert_bfr(sd) -> Dict:
+    """BFR ``enhance-512.pth`` (FullGenerator_paper) -> GPENGenerator
+    params. The encoder, style MLP and synthesis depths are read off the
+    keys."""
+    dst: Dict = {}
+
+    def lin(prefix, src):
+        _put(dst, sd, f"{prefix}/weight", f"{src}.weight", "linear")
+        _put(dst, sd, f"{prefix}/bias", f"{src}.bias")
+
+    def modconv(prefix, src):
+        _put(dst, sd, f"{prefix}/weight", f"{src}.weight", "modconv")
+        lin(f"{prefix}/modulation", f"{src}.modulation")
+
+    def styled(prefix, src):
+        modconv(f"{prefix}/conv", f"{src}.conv")
+        _put(dst, sd, f"{prefix}/noise/weight", f"{src}.noise.weight", "scalar")
+        _put(dst, sd, f"{prefix}/bias", f"{src}.activate.bias")
+
+    def torgb(prefix, src):
+        modconv(f"{prefix}/conv", f"{src}.conv")
+        _put(dst, sd, f"{prefix}/bias", f"{src}.bias", "rgb_bias")
+
+    _put(dst, sd, "ecd0/weight", "ecd0.0.0.weight", "conv2")
+    _put(dst, sd, "ecd0_bias", "ecd0.0.1.bias")
+    k = 1
+    while f"ecd{k}.0.1.weight" in sd:
+        _put(dst, sd, f"ecd{k}/weight", f"ecd{k}.0.1.weight", "conv2")
+        _put(dst, sd, f"ecd{k}_bias", f"ecd{k}.0.2.bias")
+        k += 1
+    lin("final_linear", "final_linear.0")
+    i = 1
+    while f"generator.style.{i}.weight" in sd:
+        lin(f"mlp_{i - 1}", f"generator.style.{i}")
+        i += 1
+    _put(dst, sd, "input", "generator.input.input", "nchw")
+    styled("conv1", "generator.conv1")
+    torgb("to_rgb1", "generator.to_rgb1")
+    j = 0
+    while f"generator.convs.{2 * j}.conv.weight" in sd:
+        styled(f"conv_{j + 3}_up", f"generator.convs.{2 * j}")
+        styled(f"conv_{j + 3}", f"generator.convs.{2 * j + 1}")
+        torgb(f"to_rgb_{j + 3}", f"generator.to_rgbs.{j}")
+        j += 1
+    return {"params": dst}
+
+
+def _flax_path(head: str, rest, container: str) -> str:
+    """A conv's module path -> its flax path: ``head`` (the JAX module's
+    name), then the remaining parts with the Sequential ``container``
+    dropped and its indices ``N`` named ``{container}N``, as the JAX
+    modules name them."""
+    return "/".join([head] + [f"{container}{p}" if p.isdigit() else p
+                              for p in rest if p != container])
+
+
+def convert_yoloface(sd) -> Dict:
+    """A yolov5-face state dict (``model.N.*``; BatchNorm eps 1e-3) ->
+    YoloFaceNet params with every BatchNorm folded; the Detect convs are
+    ``model.23.m.{0,1,2}``."""
+    dst: Dict = {}
+    for k in sd:
+        if not (k.startswith("model.") and k.endswith(".conv.weight")):
+            continue
+        pref = k[:-len(".conv.weight")]
+        _, idx, *rest = pref.split(".")
+        path = _flax_path(f"m{idx}", rest, "m")
+        _fold(dst, sd, f"{path}/conv", f"{pref}.conv", f"{pref}.bn", 1e-3)
+    for i in range(3):
+        _conv2(dst, f"det{i}", sd, f"model.23.m.{i}")
+    return {"params": dst}
+
+
+def convert_scrfd(sd) -> Dict:
+    """An insightface SCRFD state dict (mmdet names: ``backbone.stem.*``,
+    ``backbone.layerN.*``, ``neck.{lateral,fpn,downsample,pafpn}_convs.*``,
+    ``bbox_head.cls_convs.*``, ``bbox_head.stride_{cls,reg,kps}.*``) ->
+    ScrfdNet params with the BatchNorms folded (the head's GroupNorms
+    stay)."""
+    dst: Dict = {}
+    for i in range(3):
+        _fold(dst, sd, f"backbone/stem{i}/conv", f"backbone.stem.{3 * i}",
+              f"backbone.stem.{3 * i + 1}", 1e-5)
+    for k in sd:
+        m = re.fullmatch(r"backbone\.layer(\d+)\.(\d+)\.conv1\.weight", k)
+        if not m:
+            continue
+        t = f"backbone.layer{m[1]}.{m[2]}"
+        f = f"backbone/layer{int(m[1]) - 1}_{m[2]}"
+        _fold(dst, sd, f"{f}/conv1/conv", f"{t}.conv1", f"{t}.bn1", 1e-5)
+        _fold(dst, sd, f"{f}/conv2/conv", f"{t}.conv2", f"{t}.bn2", 1e-5)
+        if f"{t}.downsample.1.weight" in sd:
+            # [AvgPool, conv, BN] at a stride, [conv, BN] without
+            c = 1 if f"{t}.downsample.2.weight" in sd else 0
+            _fold(dst, sd, f"{f}/downsample/conv", f"{t}.downsample.{c}",
+                  f"{t}.downsample.{c + 1}", 1e-5)
+    for name, src, n in (("lateral", "lateral_convs", 3), ("fpn", "fpn_convs", 3),
+                         ("down", "downsample_convs", 2),
+                         ("pafpn", "pafpn_convs", 2)):
+        for i in range(n):
+            _fold(dst, sd, f"neck/{name}{i}/conv", f"neck.{src}.{i}.conv",
+                  f"neck.{src}.{i}.bn", 1e-5)
+    j = 0
+    while f"bbox_head.cls_convs.{j}.conv.weight" in sd:
+        _conv2(dst, f"head_conv{j}/conv", sd, f"bbox_head.cls_convs.{j}.conv")
+        _norm(dst, f"head_conv{j}/gn", sd, f"bbox_head.cls_convs.{j}.gn")
+        j += 1
+    for i in range(3):
+        for name, src in (("cls_out", "stride_cls"), ("bbox_out", "stride_reg"),
+                          ("kps_out", "stride_kps")):
+            _conv2(dst, f"{name}{i}", sd, f"bbox_head.{src}.{i}")
+    return {"params": dst}
+
+
+def _rtm_head(pref: str) -> str:
+    """``backbone.stem.N`` / ``backbone.stageS.I`` -> the JAX module name
+    (``stemN``; a stage's first module is its conv, the SPP the second of
+    stage 4, the CSP layer the last)."""
+    _, stage, idx = pref.split(".")[:3]
+    if stage == "stem":
+        return f"stem{idx}"
+    if idx == "0":
+        return f"{stage}_conv"
+    return f"{stage}_spp" if stage == "stage4" and idx == "1" else f"{stage}_csp"
+
+
+def convert_rtmpose(sd) -> Dict:
+    """An mmpose RTMPose state dict (``backbone.stem.*``,
+    ``backbone.stageN.*``, ``head.*``) -> RTMPoseNet params with the
+    BatchNorms (eps 1e-5) folded."""
+    dst: Dict = {}
+    for k in sd:
+        if k.endswith(".conv.weight") and k.startswith("backbone."):
+            pref = k[:-len(".conv.weight")]
+            path = _flax_path(_rtm_head(pref), pref.split(".")[3:], "blocks")
+            _fold(dst, sd, f"{path}/conv", f"{pref}.conv", f"{pref}.bn", 1e-5)
+        elif k.endswith("attention.fc.weight"):
+            pref = k[:-len(".fc.weight")]
+            path = _flax_path(_rtm_head(pref), pref.split(".")[3:], "blocks")
+            _conv2(dst, f"{path}/fc", sd, f"{pref}.fc")
+    _conv2(dst, "final_layer", sd, "head.final_layer")
+    _put(dst, sd, "mlp_norm/g", "head.mlp.0.g")
+    _linear(dst, "mlp", sd, "head.mlp.1", bias=False)
+    _put(dst, sd, "gau/ln/g", "head.gau.ln.g")
+    _linear(dst, "gau/uv", sd, "head.gau.uv")
+    _linear(dst, "gau/o", sd, "head.gau.o")
+    for leaf in ("gamma", "beta"):
+        _put(dst, sd, f"gau/{leaf}", f"head.gau.{leaf}")
+    _put(dst, sd, "gau/res_scale", "head.gau.res_scale.scale")
+    _linear(dst, "cls_x", sd, "head.cls_x", bias=False)
+    _linear(dst, "cls_y", sd, "head.cls_y", bias=False)
+    return {"params": dst}
+
+
 # ----------------------------------------------------- export (flax -> torch)
 
 def _flatten_params(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -456,19 +744,21 @@ def _flatten_params(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def export_state_dict(convert_fn, params: Mapping, strict: bool = True,
-                      **kwargs) -> Dict[str, np.ndarray]:
+                      keys=None, **kwargs) -> Dict[str, np.ndarray]:
     """Invert a converter: flax params -> reference-keyed torch state dict.
 
     Re-runs ``convert_fn`` in capture mode to obtain its
     (flax path, torch key, kind) assignment spec, then replays it backward
     with the inverse layout transforms. Entries whose flax path is absent
     from ``params`` are pruned (optional modules); with ``strict`` every
-    param leaf must be covered by the spec. Completes the reference
+    param leaf must be covered by the spec. ``keys`` (the target module's
+    state-dict keys) serve converters that discover modules from the
+    keys. Completes the reference
     checkpoint contract round trip
     (the reference's ``Inference.py:80-142``): a model fine-tuned here can
     be re-exported to the six ``.pth`` state dicts.
     """
-    cap = _CaptureSD()
+    cap = _CaptureSD(keys)
     convert_fn(cap, **kwargs)
     tree = params.get("params", params)
     flat = _flatten_params(tree)
@@ -577,6 +867,41 @@ def export_vasa_pose(params: Mapping) -> Dict[str, np.ndarray]:
 def export_arcface(params: Mapping) -> Dict[str, np.ndarray]:
     """IResNet-50 params -> insightface's ``backbone.pth`` dict."""
     return export_state_dict(convert_arcface, params)
+
+
+def export_rife(params: Mapping) -> Dict[str, np.ndarray]:
+    """IFNet params -> ``flownet.pkl``'s entries (``module.`` stripped),
+    the transposed convs' kernels flipped back."""
+    return export_state_dict(convert_rife, params)
+
+
+def export_teeth(params: Mapping) -> Dict[str, np.ndarray]:
+    """TeethEnhancer params -> the PNNX export's flat entries."""
+    return export_state_dict(convert_teeth, params)
+
+
+def export_bfr(params: Mapping, keys) -> Dict[str, np.ndarray]:
+    """GPENGenerator params -> ``enhance-512.pth``'s entries; ``keys``: the
+    port module's state-dict keys (its depths)."""
+    return export_state_dict(convert_bfr, params, keys=keys)
+
+
+def export_yoloface(params: Mapping, keys) -> Dict[str, np.ndarray]:
+    """Folded YoloFaceNet params -> a yolov5-face state dict keyed as
+    ``keys`` (the port module's), each BatchNorm the identity."""
+    return export_state_dict(convert_yoloface, params, keys=keys)
+
+
+def export_scrfd(params: Mapping, keys) -> Dict[str, np.ndarray]:
+    """Folded ScrfdNet params -> an SCRFD state dict keyed as ``keys``,
+    each BatchNorm the identity over its folded conv."""
+    return export_state_dict(convert_scrfd, params, keys=keys)
+
+
+def export_rtmpose(params: Mapping, keys) -> Dict[str, np.ndarray]:
+    """Folded RTMPoseNet params -> an mmpose RTMPose state dict keyed as
+    ``keys``, each BatchNorm the identity."""
+    return export_state_dict(convert_rtmpose, params, keys=keys)
 
 
 def export_lineage(params: Mapping) -> Dict[str, np.ndarray]:

@@ -19,30 +19,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from actalker_tpu_torch.models.common import Conv2dNCHW, Linear
-
-
-class FrozenBatchNorm(nn.Module):
-    """y = weight * (x - running_mean) / sqrt(running_var + eps) + bias over
-    the channel axis 1."""
-
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        state_dict.pop(prefix + "num_batches_tracked", None)
-        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
-
-    def forward(self, x):
-        inv = self.weight / torch.sqrt(self.running_var + self.eps)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        return x * inv.reshape(shape) + (self.bias - self.running_mean * inv
-                                         ).reshape(shape)
+from actalker_tpu_torch.models.common import Conv2dNCHW, FrozenBatchNorm, Linear
 
 
 def _conv(cin, cout, k=3, stride=1):

@@ -1,22 +1,26 @@
 """Whole clips through the inference CLI on the card, timed by stage.
 
     python -m actalker_tpu_torch.tools.cli_clips --cell C6
+    python -m actalker_tpu_torch.tools.cli_clips --cell C5
     python -m actalker_tpu_torch.tools.cli_clips --cell C3 [--norm fused]
 
 C6: 512 px, 14-frame windows, 25 denoise steps, 14 frames (the clip of
-``chip_smoke.py`` phase 5 at its full step count; 2 windows a step). C3:
+``chip_smoke.py`` phase 5 at its full step count; 2 windows a step). C5:
+the longform, 125 frames at 512 px, 14-frame windows, 25 steps, decode
+chunks of 10 (the operating point of ``tools/run_longform.py``, there in
+mode 0 through the JAX CLI; here in mode 2 as the other cells). C3:
 ``configs/inference.yaml`` as it stands (576 px, 25-frame windows, 25
 steps) over 500 frames, the reference's default clip (21 windows a step:
-``bench.py``'s derivation of its ~6 min H100 figure). Both run one window
+``bench.py``'s derivation of its ~6 min H100 figure). Each runs one window
 a UNet call, as the reference's loop does (all 21 of C3's in one batch
-would not fit the card). Both in mode 2 (no
+would not fit the card). All in mode 2 (no
 driving video), seeded weights (``--random-weights``), a seeded 512 / 576
 px portrait and tones as speech, written under ``--out`` (git-ignored
 ``cli_clips_out/`` by default). ``--norm fused`` runs the fused-norm
 configuration (K7-LN, K7-GN, K8). C6 runs twice (the second is the
-reading); C3 once, cold, as a user runs it.
+reading); C5 and C3 once, cold, as a user runs them.
 
-Prints the card line, then per run the stage seconds (preprocess, mel,
+Prints the card line, then per run the stage seconds (detect, preprocess, mel,
 whisper, tokens, generate_latents, decode, and write where this machine
 has a video encoder), the UNet calls and seconds per window-step, the peak
 ``torch.cuda.max_memory_allocated``, and a JSON line. Needs a CUDA card.
@@ -45,6 +49,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # cell -> (config overrides, video frames)
 CELLS = {"C6": (dict(image_size=512, n_sample_frames=14, num_inference_steps=25,
                      decode_chunk_size=14, windows_per_call=1), 14),
+         "C5": (dict(image_size=512, n_sample_frames=14, num_inference_steps=25,
+                     decode_chunk_size=10, windows_per_call=1), 125),
          "C3": (dict(windows_per_call=1), 500)}
 
 

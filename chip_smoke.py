@@ -63,7 +63,16 @@ Phases, one line each (any failure raises and exits non-zero):
      with the masked-dense scan (``gather=False``), and C7, the 576 px /
      25-frame window-step in both configurations with its peak memory,
      each beside one UNet forward through the kernels and the plain
-     versions; launch counts derived from the model.
+     versions; launch counts derived from the model;
+ 10. the CLI's full path: the six networks of the face stack and the
+     post-passes (yolov5m-face, SCRFD-10G-bnkps, RTMPose-m face6, GPEN-512,
+     the teeth net, IFNet c = 90) seeded at their published widths and
+     saved as the reference's files; ``cli.generate_frames`` in mode 2 at
+     full width, 512 px, 14 frames, 3 steps with every pass on (the learned
+     detector, landmarks, reference-image BFR, teeth, frame BFR, RIFE: 27
+     frames), once to warm up and once counted, stage times printed, K1-K4
+     launches derived from the model; SCRFD alone; each network on the card
+     (fp32, loaded from its file) against the same module on the CPU.
 Then a JSON line with the bisect variants, one with the kernels, the card
 line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -143,6 +152,10 @@ LINEAGE_GRAD_GROUPS = {
 CLI_BOX = (136.0, 136.0, 375.0, 375.0)
 C9_CAPACITY = 0.375
 C7_PX, C7_FRAMES = 576, 25
+# phase 10: the face stack's and the post-passes' networks, the card against
+# the CPU on the same weights and inputs. fp32 on both (TF32 off); cuDNN
+# and the CPU sum each conv in another order, through up to ~60 layers
+FACE_NET_TOL = 1e-4
 # a full-width bf16 UNet: kernels and plain versions round activations at
 # different places through ~100 layers
 UNET_TOL = 5e-2
@@ -747,28 +760,16 @@ def k1_rows():
         ssm.ssm_scan_grouped = real
 
 
-def phase9(torch, dev, kernels, card):
-    """The inference CLI at full width (modes 0 and 2), C9 (the mode-0
-    window-step with the SSM gather and masked-dense) and C7 (the 576 px /
-    25-frame window-step, default and fused-norm). Returns the CLI runs'
-    launch counts."""
-    import argparse
-    import dataclasses
+def write_cli_inputs(out):
+    """The CLI's inputs under ``out``: 1.2 s of 16 kHz speech-band tones
+    (stdlib wave, read by load_audio's scipy branch where libav is absent)
+    and a seeded 512 px portrait. Returns (wav, png) paths."""
     import wave
 
     import numpy as np
     from PIL import Image
 
-    from actalker_tpu_torch import cli
-    from actalker_tpu_torch.frontend import video as V
-    from actalker_tpu_torch.models.conditioning import Conditioning
-    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
-
-    out = os.path.join(OUT, "cli")
     os.makedirs(out, exist_ok=True)
-    # the inputs: 1.2 s of 16 kHz speech-band tones (stdlib wave, read by
-    # load_audio's scipy branch where libav is absent) and a seeded 512 px
-    # portrait
     rng = np.random.default_rng(9)
     t = np.arange(int(1.2 * 16000)) / 16000
     tone = sum(a * np.sin(2 * np.pi * f * t) for a, f in ((0.3, 180), (0.2, 720), (0.1, 2400)))
@@ -781,6 +782,26 @@ def phase9(torch, dev, kernels, card):
                       .astype(np.int16).tobytes())
     ref = os.path.join(out, "portrait.png")
     Image.fromarray((rng.random((PX, PX, 3)) * 255).astype(np.uint8)).save(ref)
+    return wav, ref
+
+
+def phase9(torch, dev, kernels, card):
+    """The inference CLI at full width (modes 0 and 2), C9 (the mode-0
+    window-step with the SSM gather and masked-dense) and C7 (the 576 px /
+    25-frame window-step, default and fused-norm). Returns the CLI runs'
+    launch counts."""
+    import argparse
+    import dataclasses
+
+    import numpy as np
+
+    from actalker_tpu_torch import cli
+    from actalker_tpu_torch.frontend import video as V
+    from actalker_tpu_torch.models.conditioning import Conditioning
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    out = os.path.join(OUT, "cli")
+    wav, ref = write_cli_inputs(out)
     cfg = dataclasses.replace(
         cli.load_config(os.path.join(ROOT, "configs", "inference.yaml")),
         image_size=PX, n_sample_frames=FRAMES, num_inference_steps=STEPS,
@@ -985,6 +1006,139 @@ def phase9(torch, dev, kernels, card):
     torch.cuda.empty_cache()
     shutil.rmtree(OUT, ignore_errors=True)
     return cli_counts
+
+
+def face_networks():
+    """The CLI's six networks at their published widths: name -> (config
+    key of its checkpoint, the module's constructor, its loader, seeded
+    inputs at its published size)."""
+    import numpy as np
+
+    from actalker_tpu_torch.frontend.landmarks import face6_config
+    from actalker_tpu_torch.io import init as I
+    from actalker_tpu_torch.models import rife, rtmpose, scrfd, stylegan2, teeth, yoloface
+
+    r = np.random.default_rng(10)
+
+    def img(side, lo=0.0, hi=1.0):
+        return r.uniform(lo, hi, (1, side, side, 3)).astype(np.float32)
+
+    return {
+        "yolov5m-face": ("det_checkpoint_path", yoloface.YoloFaceNet,
+                         I.load_yoloface, (img(416),)),
+        "scrfd-10g-bnkps": ("scrfd_checkpoint_path", scrfd.ScrfdNet,
+                            I.load_scrfd, (img(640, -1.0),)),
+        "rtmpose-m-face6": ("face_landmark_checkpoint_path",
+                            lambda: rtmpose.RTMPoseNet(face6_config()),
+                            I.load_face_landmarker,
+                            (r.standard_normal((1, 256, 256, 3)).astype(np.float32),)),
+        "gpen-512": ("bfr_checkpoint_path", stylegan2.GPENGenerator, I.load_bfr,
+                     (img(512, -1.0),)),
+        "teeth": ("teeth_checkpoint_path", teeth.TeethEnhancer, I.load_teeth,
+                  (img(512, -1.0),)),
+        "ifnet-c90": ("rife_checkpoint_path", rife.IFNet, I.load_rife,
+                      (img(512), img(512))),
+    }
+
+
+def flat_output(torch, y):
+    """A network's output(s) as one fp32 CPU vector."""
+    if isinstance(y, (tuple, list)):
+        return torch.cat([flat_output(torch, t) for t in y])
+    return y.detach().float().cpu().flatten()
+
+
+def phase10(torch, dev, kernels, card):
+    """The CLI's full path: the six networks seeded at their published
+    widths and saved as the reference's files, then ``generate_frames`` in
+    mode 2 at full UNet width with every pass on (learned detector,
+    landmarks, reference-image BFR, teeth, frame BFR, RIFE), once to warm
+    up and once counted; SCRFD alone; each network on the card against the
+    CPU. Returns the counted run's launches."""
+    import argparse
+    import dataclasses
+
+    import numpy as np
+
+    from actalker_tpu_torch import cli
+    from actalker_tpu_torch.frontend.preprocess import read_image
+
+    out = os.path.join(OUT, "face")
+    wav, ref = write_cli_inputs(out)
+    nets = face_networks()
+    paths, cpu_nets = {}, {}
+    for i, (name, (key, build, _, _)) in enumerate(nets.items()):
+        torch.manual_seed(100 + i)
+        cpu_nets[name] = build().eval()
+        paths[key] = os.path.join(out, f"{name}.pth")
+        torch.save(cpu_nets[name].state_dict(), paths[key])
+    base = cli.load_config(os.path.join(ROOT, "configs", "inference.yaml"))
+    cfg = dataclasses.replace(
+        base, image_size=PX, n_sample_frames=FRAMES, num_inference_steps=STEPS,
+        decode_chunk_size=FRAMES, seed=0, output_dir=out, exp_name="cli",
+        arcface_checkpoint_path="", use_bfr=True, use_teeth_enhance=True,
+        use_interframe=True, extras={**base.extras, "use_bfr_frames": True}, **paths)
+    args = argparse.Namespace(config="configs/inference.yaml", ref=ref, audio=wav,
+                              video=None, mode=2, batch=False, random_weights=True,
+                              frame_limit=2 * FRAMES, device="cuda")
+    gate, pipes = cli.MODE_GATES[2], {}
+    cli.generate_frames(cfg, args, gate, pipes)                       # warm-up
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    res = cli.generate_frames(cfg, args, gate, pipes)
+    counts = {n: k.launches for n, k in kernels.items()}
+    calls = unet_calls(cfg.sampler_config(gate), res["num_frames"])
+    per = forward_launches(res["pipe"].m.unet)
+    want = {n: per.get(n, 0) * calls for n in kernels}
+    frames = res["frames01"]
+    sec = {k: round(v, 4) for k, v in res["seconds"].items()}
+    print(f"[10 cli] mode 2, every pass on (yolov5m-face, RTMPose-m face6, GPEN-512 "
+          f"on the reference and the frames, teeth, RIFE c = 90), full width, {PX} px, "
+          f"{res['num_frames']} frames -> {frames.shape[0]}, {STEPS} steps, random "
+          f"weights: stages (s) {sec} | total {sum(res['seconds'].values()):.4f} s | "
+          f"launches {counts} (derived {want}: {calls} UNet calls) | {card}", flush=True)
+    n_out = 2 * res["num_frames"] - 1
+    if frames.shape != (n_out, PX, PX, 3) or not np.isfinite(frames).all() \
+            or frames.min() < 0 or frames.max() > 1:
+        raise RuntimeError(f"CLI with every pass: frames {frames.shape} not "
+                           f"({n_out}, {PX}, {PX}, 3), finite, in [0, 1]")
+    missing = {"detect", "landmarks", "bfr_ref", "teeth", "bfr_frames", "rife"} - set(sec)
+    if missing or counts != want:
+        raise RuntimeError(f"CLI with every pass: stages {missing} missing or "
+                           f"launches {counts} != derived {want}")
+    del res, pipes
+    torch.cuda.empty_cache()
+
+    # SCRFD alone (the CLI takes yolov5-face first)
+    det = cli.resolve_face_detector("", paths["scrfd_checkpoint_path"], dev)
+    portrait = read_image(ref)
+    det.detect(portrait[..., ::-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bboxes, kpss, scores = det.detect(portrait[..., ::-1])
+    print(f"[10 scrfd] SCRFD-10G-bnkps alone on the {PX} px portrait (640 x 640 "
+          f"letterbox): {len(bboxes)} faces, kps {kpss.shape}, "
+          f"{time.perf_counter() - t0:.4f} s | {card}", flush=True)
+    if bboxes.shape[1:] != (4,) or kpss.shape[1:] != (5, 2) or scores.shape != bboxes.shape[:1]:
+        raise RuntimeError("SCRFD's detect gave malformed arrays")
+
+    # each network: the card (loaded from its file) against the CPU module
+    for name, (key, _, loader, inputs) in nets.items():
+        card_net = loader(paths[key], dev)
+        with torch.no_grad():
+            y_card = flat_output(torch, card_net(*(torch.from_numpy(x).to(dev) for x in inputs)))
+            y_cpu = flat_output(torch, cpu_nets[name](*(torch.from_numpy(x) for x in inputs)))
+        rel = float((y_card - y_cpu).norm() / y_cpu.norm())
+        print(f"[10 net] {name}: card vs CPU rel_l2 {rel:.3g} (tol {FACE_NET_TOL}) "
+              f"over {y_cpu.numel()} outputs | {card}", flush=True)
+        if not (rel <= FACE_NET_TOL and torch.isfinite(y_card).all()):
+            raise RuntimeError(f"{name}: card vs CPU rel_l2 {rel}")
+        del card_net
+    del cpu_nets
+    torch.cuda.empty_cache()
+    shutil.rmtree(OUT, ignore_errors=True)
+    return counts
 
 
 def main() -> int:
@@ -1483,6 +1637,9 @@ def main() -> int:
     # ---- 9: the inference CLI, C9 and C7 ----
     cli_counts = phase9(torch, dev, kernels, card)
 
+    # ---- 10: the CLI's full path (face stack and post-passes) ----
+    full_counts = phase10(torch, dev, kernels, card)
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
                     else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
@@ -1507,7 +1664,8 @@ def main() -> int:
                              "clip_fused": fused_counts[n],
                              "train": train_counts[n],
                              "lineage": lineage_counts[n],
-                             "cli": cli_counts[n]},
+                             "cli": cli_counts[n],
+                             "cli_full": full_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],
