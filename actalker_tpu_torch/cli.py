@@ -45,8 +45,7 @@ from actalker_tpu_torch.frontend.landmarks import (
     NoFaceError, resolve_landmark_estimator)
 from actalker_tpu_torch.io import init as I
 from actalker_tpu_torch.io.init import (
-    cast_params_bf16_, load_checkpoints, load_state_file, random_init_)
-from actalker_tpu_torch.models.arcface import iresnet50
+    cast_params_bf16_, load_checkpoints, random_init_)
 from actalker_tpu_torch.models.rife import interpolate_pairs
 from actalker_tpu_torch.models.unet import UNetConfig
 from actalker_tpu_torch.models.vae import VAEConfig
@@ -122,9 +121,7 @@ def identity_embedding(cfg: InferenceConfig, head_crop: np.ndarray,
               f"{cfg.arcface_checkpoint_path}; identity conditioning is a "
               "zero embedding")
         return np.zeros(512, np.float32)
-    net = iresnet50()
-    net.load_state_dict(load_state_file(cfg.arcface_checkpoint_path), strict=True)
-    net = net.to(device).eval()
+    net = I.load_arcface(cfg.arcface_checkpoint_path, device)
     with torch.no_grad():
         x = torch.from_numpy(np.asarray(head_crop, np.float32))[None].to(device)
         return net(x)[0].float().cpu().numpy()

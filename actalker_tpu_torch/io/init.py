@@ -16,9 +16,10 @@ files' own, with ``strict=True``: the six ``.pth`` files
 exist, the SVD-XT VAE's ``.safetensors`` (read by ``read_safetensors``,
 without the ``safetensors`` package), whisper-tiny's ``pytorch_model.bin``
 and the VASA MX31c checkpoint's ``generator`` / ``pose_model`` dicts.
-``load_yoloface`` / ``load_scrfd`` / ``load_face_landmarker`` /
-``load_bfr`` / ``load_teeth`` / ``load_rife`` load the face stack's and
-the post-passes' files the same way, in fp32.
+``load_arcface`` / ``load_yoloface`` / ``load_scrfd`` /
+``load_face_landmarker`` / ``load_bfr`` / ``load_teeth`` / ``load_rife``
+load ArcFace's, the face stack's and the post-passes' files the same way,
+in fp32.
 """
 from __future__ import annotations
 
@@ -226,6 +227,15 @@ def load_checkpoints(cfg, modules: Mapping[str, nn.Module]) -> Optional[Set[str]
     paths = {key: getattr(cfg, key) for key in
              list(_CKPT_KEYS.values()) + ["adapter_module_checkpoint_path"]}
     loaded = set(load_reference_checkpoints(modules, paths)) - {"adapter_module"}
+    return loaded | load_frozen_encoders(cfg, modules)
+
+
+def load_frozen_encoders(cfg, modules: Mapping[str, nn.Module]) -> Set[str]:
+    """Load the frozen encoders' files that ``cfg`` names and that exist (the
+    SVD-XT VAE under ``pretrained_model_name_or_path``, whisper under
+    ``whisper_model``, the VASA towers from ``vasa_checkpoint_path``) into
+    ``modules`` with ``strict=True``; returns the names loaded."""
+    loaded = set()
     if os.path.exists(vae_path(cfg)):
         modules["vae"].load_state_dict(read_safetensors(vae_path(cfg)),
                                        strict=True)
@@ -234,7 +244,7 @@ def load_checkpoints(cfg, modules: Mapping[str, nn.Module]) -> Optional[Set[str]
         modules["whisper"].load_state_dict(
             whisper_state_dict(load_state_file(whisper_path(cfg))), strict=True)
         loaded.add("whisper")
-    if have(cfg.vasa_checkpoint_path):
+    if cfg.vasa_checkpoint_path and os.path.exists(cfg.vasa_checkpoint_path):
         ck = torch.load(cfg.vasa_checkpoint_path, map_location="cpu",
                         weights_only=True)
         for name, sd in vasa_state_dicts(ck).items():
@@ -252,6 +262,14 @@ def _load_net(build, sd: Mapping[str, torch.Tensor], device) -> nn.Module:
         net = build()
     net.load_state_dict(sd, strict=True, assign=True)
     return net.to(device=device, dtype=torch.float32).eval()
+
+
+def load_arcface(path: str, device):
+    """The ArcFace file (insightface's iresnet50 ``backbone.pth``) ->
+    iresnet50."""
+    from actalker_tpu_torch.models.arcface import iresnet50
+
+    return _load_net(iresnet50, load_state_file(path), device)
 
 
 def load_yoloface(path: str, device):

@@ -28,7 +28,11 @@ order (a cumsum slot assignment, the reference's ``masked_select`` order),
 then its tail; K1 walks max(K + tail) rows, and the outputs are scattered
 back. A branch switched off by its gate (frac 0) scans its tail only. More
 selected tokens than K break the contract: ``capacity_overflow="nan"``
-poisons the block's output, ``"drop"`` leaves the extra tokens unscanned.
+poisons the output of each batch row that overflows, ``"drop"`` leaves the
+extra tokens unscanned. The JAX package poisons its whole call, which under
+its serving vmap is one identity; here the rows of one identity share its
+mask, so an identity that overflows turns NaN whole and the others of its
+call stay finite.
 """
 from __future__ import annotations
 
@@ -211,15 +215,18 @@ class SS2DCondV10(nn.Module):
             u_g = x.new_zeros(lt, b, nb * di)
             active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
             gathered = []
-            overflow = torch.zeros((), dtype=torch.long, device=x.device)
+            overflow = torch.zeros(b, dtype=torch.bool, device=x.device)
             for bi in range(nb):
                 k, cols = caps[bi], slice(bi * di, (bi + 1) * di)
                 rows, act = _compact_rows(sels[bi], k)          # (k, b) each
                 if k < l:   # the capacity contract, checked on the device
-                    overflow = overflow + (sels[bi].sum(1).max() - k).clamp_min(0)
+                    overflow = overflow | (sels[bi].sum(1) > k)
                 xz_b = xz_full[:, :, cols].reshape(l * b, di)
                 gath = xz_b.index_select(0, rows.clamp_max(l * b - 1).reshape(-1)
                                          ).reshape(k, b, di)
+                # an empty slot read another row (the clamp): zero it, so a
+                # poisoned row cannot reach the scan of the others
+                gath = torch.where(act[..., None], gath, 0.0)
                 u_g[:k, :, cols] = gath
                 u_g[k:k + ntoks[bi], :, cols] = tails[bi].transpose(0, 1)
                 active[:k, :, bi] = act
@@ -235,10 +242,12 @@ class SS2DCondV10(nn.Module):
                 out.index_copy_(0, rows.reshape(-1), upd.reshape(k * b, di))
                 outs.append(out[:l * b].reshape(l, b, di))
             if self.capacity_overflow == "nan":
-                poison = torch.where(overflow > 0, float("nan"), 0.0).to(dt)
+                # per batch row, so that rows which keep their budget (the
+                # other identities of a batched serving call) stay finite
+                poison = torch.where(overflow, float("nan"), 0.0).to(dt)
         y = sum(outs)
         if poison is not None:
-            y = y + poison
+            y = y + poison[None, :, None]
         y = y.transpose(0, 1)                                   # (b, l, di)
         return self.out_proj(self.out_norm(y))
 

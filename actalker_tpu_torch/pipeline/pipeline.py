@@ -29,8 +29,8 @@ from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalConditi
 from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
 from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
 from actalker_tpu_torch.models.whisper import WhisperEncoder
-from actalker_tpu_torch.pipeline.sampler import (
-    CondBuffers, SamplerConfig, make_plan, sample_video)
+from actalker_tpu_torch.pipeline.sampler import CondBuffers, SamplerConfig, make_plan
+from actalker_tpu_torch.pipeline.serving import sample_video_batch, stack_buffers
 
 
 @dataclasses.dataclass
@@ -188,7 +188,7 @@ class ACTalkerPipeline:
                 return 0.0
             if mask is None:
                 return 1.0
-            m = torch.as_tensor(np.asarray(mask, np.float32))
+            m = torch.as_tensor(mask, dtype=torch.float32).cpu()
             if m.min() >= 1.0 - 1e-6:
                 return 1.0
             worst = 0.0
@@ -205,20 +205,15 @@ class ACTalkerPipeline:
         return (fa, fe)
 
     @torch.no_grad()
-    def generate_latents(self, ref_image, id_embed, audio_tokens,
+    def prepare_sampling(self, ref_image, id_embed, audio_tokens,
                          uncond_audio_tokens, vasa_tokens, uncond_vasa_tokens,
                          pose_images, config: SamplerConfig, seed: int = 0,
-                         audio_mask=None, exp_mask=None, init_noise=None,
-                         noise_aug=None) -> torch.Tensor:
-        """ref_image (H, W, 3) in [-1, 1]; id_embed (512,); audio tokens
-        (F, 32, 1024); vasa tokens (F, 1, 1024); pose_images (F, H, W, 3) in
-        [0, 1]; masks (1, 1, H, W). Returns latents (F, h, w, 4) fp32.
-
-        ``init_noise`` (buf, h, w, 4) and ``noise_aug`` (H, W, 3) replace the
-        seeded draws of the initial noise and of the reference-image noise
-        augmentation (tests feed both packages the same numpy noise). With
-        face-box masks in modes 0 / 1 the SSM blocks take their gather path
-        for this call (``_capacity_fracs``)."""
+                         audio_mask=None, exp_mask=None, noise_aug=None):
+        """The sampler's inputs for one identity: (plan, buffers, ref_latent
+        (h, w, 4) scaled, generator). The generator, seeded with ``seed``,
+        has drawn the reference-image noise augmentation (unless
+        ``noise_aug`` gives it) and next draws the initial noise. Arguments
+        as ``generate_latents``."""
         m = self.m
         num_frames = audio_tokens.shape[0]
         plan = make_plan(config, num_frames)
@@ -256,18 +251,64 @@ class ACTalkerPipeline:
             audio_mask=ones if audio_mask is None else self._t(audio_mask),
             exp_mask=ones if exp_mask is None else self._t(exp_mask),
         )
-        caps = self._capacity_fracs(config, audio_mask, exp_mask,
-                                    (hm // 8, wm // 8)) if self.gather else None
-        saved = m.unet.config.mask_capacity
-        m.unet.set_mask_capacity(caps)
+        return plan, buffers, ref_latent, gen
+
+    @torch.no_grad()
+    def generate_latents(self, ref_image, id_embed, audio_tokens,
+                         uncond_audio_tokens, vasa_tokens, uncond_vasa_tokens,
+                         pose_images, config: SamplerConfig, seed: int = 0,
+                         audio_mask=None, exp_mask=None, init_noise=None,
+                         noise_aug=None) -> torch.Tensor:
+        """ref_image (H, W, 3) in [-1, 1]; id_embed (512,); audio tokens
+        (F, 32, 1024); vasa tokens (F, 1, 1024); pose_images (F, H, W, 3) in
+        [0, 1]; masks (1, 1, H, W). Returns latents (F, h, w, 4) fp32.
+
+        ``init_noise`` (buf, h, w, 4) and ``noise_aug`` (H, W, 3) replace the
+        seeded draws of the initial noise and of the reference-image noise
+        augmentation (tests feed both packages the same numpy noise). With
+        face-box masks in modes 0 / 1 the SSM blocks take their gather path
+        for this call (``_capacity_fracs``)."""
+        prepared = self.prepare_sampling(
+            ref_image, id_embed, audio_tokens, uncond_audio_tokens, vasa_tokens,
+            uncond_vasa_tokens, pose_images, config, seed, audio_mask,
+            exp_mask, noise_aug)
+        return self.generate_latents_batch(
+            [prepared], config,
+            init_noise=None if init_noise is None else self._t(init_noise)[None])[0]
+
+    @torch.no_grad()
+    def generate_latents_batch(self, prepared, config: SamplerConfig,
+                               init_noise=None) -> torch.Tensor:
+        """Several identities' ``prepare_sampling`` outputs (plan, buffers,
+        ref_latent, generator), all of one frame count, through one
+        ``serving.sample_video_batch`` loop whose UNet calls stack them.
+        Returns latents (I, F, h, w, 4) fp32; ``init_noise`` (I, buf, h, w,
+        4) replaces the generators' initial draws.
+
+        The SSM budget is one for the whole call, as under the JAX
+        package's identity vmap: ``_capacity_fracs`` of the stacked masks,
+        set for this call and restored after. Identity sharding over
+        several cards (the JAX package's ``mesh=``) waits for the port's
+        ``parallel/`` slice."""
+        plan = prepared[0][0]
+        if any(p[0].num_frames != plan.num_frames for p in prepared):
+            raise ValueError("identities of one call need one frame count")
+        buffers = stack_buffers([p[1] for p in prepared])
+        refs = torch.stack([p[2] for p in prepared])
+        caps = self._capacity_fracs(config, buffers.audio_mask[:, 0],
+                                    buffers.exp_mask[:, 0], refs.shape[1:3]
+                                    ) if self.gather else None
+        unet = self.m.unet
+        saved = unet.config.mask_capacity
+        unet.set_mask_capacity(caps)
         try:
-            latents = sample_video(
-                m.unet, config, plan, buffers, ref_latent, generator=gen,
-                dtype=self.dtype,
-                init_noise=None if init_noise is None else self._t(init_noise))
+            latents = sample_video_batch(
+                unet, config, plan, buffers, refs,
+                generators=[p[3] for p in prepared], dtype=self.dtype,
+                init_noise=init_noise)
         finally:
-            m.unet.set_mask_capacity(saved)
-        return latents[:num_frames]
+            unet.set_mask_capacity(saved)
+        return latents[:, :plan.num_frames]
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, decode_chunk_size: int = 10

@@ -12,11 +12,16 @@ vasa branches.
 The denoise loop is a Python loop over steps. Within a step the windows run
 ``windows_per_call`` at a time (0 = all in one UNet batch; the output is the
 same either way), and the overlap average is an ``index_add_`` plus counts.
+
+One loop serves one identity (``sample_video``) and several
+(``sample_video_batch``, the entry of ``pipeline/serving.py``): every
+buffer carries a leading identity axis, and a UNet call stacks the
+identities, in the batch order identity, window, CFG branch, frame.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,26 +118,29 @@ def make_plan(cfg: SamplerConfig, num_frames: int) -> SamplerPlan:
 
 def _cfg_conditioning(buffers: CondBuffers, idx: torch.Tensor,
                       cfg: SamplerConfig, dtype) -> Conditioning:
-    """4-way-CFG conditioning for the windows ``idx`` (nw, fpb), stacked
-    window-major, then [uncond, drop_audio+vasa, drop_vasa, full], then
-    frames: the UNet's (batch, frame) order."""
+    """4-way-CFG conditioning for the windows ``idx`` (nw, fpb) of buffers
+    with a leading identity axis, stacked identity-major, then window, then
+    [uncond, drop_audio+vasa, drop_vasa, full], then frames: the UNet's
+    (batch, frame) order. The masks keep one row per identity (Bm = I),
+    which the blocks repeat over that identity's rows."""
     ga, gv = cfg.gate
 
     def take(t, gate=1):
-        return t[idx].to(dtype) * gate
+        return t[:, idx].to(dtype) * gate
 
-    id_c = take(buffers.id_tokens)                 # (nw, fpb, 1, d)
+    id_c = take(buffers.id_tokens)                 # (I, nw, fpb, 1, d)
     au_c, au_u = take(buffers.audio_tokens, ga), take(buffers.audio_tokens_u, ga)
     va_c, va_u = take(buffers.vasa_tokens, gv), take(buffers.vasa_tokens_u, gv)
 
-    def stack4(a, b, c, d):                        # -> (nw * 4 * fpb, ...)
-        s = torch.stack([a, b, c, d], dim=1)
-        return s.reshape(-1, *s.shape[3:])
+    def stack4(a, b, c, d):                        # -> (I * nw * 4 * fpb, ...)
+        s = torch.stack([a, b, c, d], dim=2)
+        return s.reshape(-1, *s.shape[4:])
 
     id_tokens = stack4(torch.zeros_like(id_c), id_c, id_c, id_c)
     audio = stack4(au_u, au_u, au_c, au_c)
     vasa = stack4(va_u, va_u, va_u, va_c)
-    am, em = buffers.audio_mask, buffers.exp_mask
+    am, em = (None if m is None else m.reshape(-1, *m.shape[2:])
+              for m in (buffers.audio_mask, buffers.exp_mask))
     if ga and not gv:
         em = None if am is None else torch.zeros_like(am)
     elif not ga:
@@ -157,26 +165,58 @@ def _churn_noise(cfg: SamplerConfig, shape, generator, dev) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=dev)
 
 
+def _identity_axis(buffers: CondBuffers) -> CondBuffers:
+    """One identity's buffers with a leading identity axis of 1."""
+    return dataclasses.replace(buffers, **{
+        f.name: getattr(buffers, f.name)[None] for f in dataclasses.fields(buffers)
+        if torch.is_tensor(getattr(buffers, f.name))})
+
+
 @torch.no_grad()
 def sample_video(unet, cfg: SamplerConfig, plan: SamplerPlan,
                  buffers: CondBuffers, ref_latent: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Runs the denoise loop; returns latents (buffer_len, h, w, 4) fp32.
+    """Runs the denoise loop for one identity; returns latents (buffer_len,
+    h, w, 4) fp32.
 
     ``ref_latent``: (h, w, 4) scaled VAE mean. ``init_noise``: optional
     (buffer_len, h, w, 4) initial noise replacing the draw from
     ``generator`` (tests feed both packages the same numpy noise)."""
-    dev = ref_latent.device
+    return sample_video_batch(
+        unet, cfg, plan, _identity_axis(buffers), ref_latent[None],
+        generators=[generator], dtype=dtype,
+        init_noise=None if init_noise is None else init_noise[None])[0]
+
+
+@torch.no_grad()
+def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
+                       buffers: CondBuffers, ref_latents: torch.Tensor,
+                       generators: Optional[Sequence[Optional[torch.Generator]]] = None,
+                       dtype: torch.dtype = torch.bfloat16,
+                       init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Runs the denoise loop for I identities in one loop whose UNet calls
+    stack them; returns latents (I, buffer_len, h, w, 4) fp32.
+
+    ``buffers``: every tensor field with a leading identity axis (masks
+    (I, 1, 1, H, W)); ``ref_latents``: (I, h, w, 4). Identity i draws its
+    initial noise (unless ``init_noise`` (I, buffer_len, h, w, 4) gives it)
+    and its churn from ``generators[i]``, so it equals ``sample_video`` on
+    its own buffers and generator."""
+    dev = ref_latents.device
     fpb, buf = cfg.frames_per_batch, plan.buffer_len
-    h, w, _ = ref_latent.shape
+    n_id, h, w, _ = ref_latents.shape
+    gens = list(generators) if generators is not None else [None] * n_id
+    if len(gens) != n_id:
+        raise ValueError(f"{len(gens)} generators for {n_id} identities")
     if init_noise is None:
-        noise = torch.randn((buf, h, w, 4), generator=generator, device=dev)
+        noise = torch.stack([torch.randn((buf, h, w, 4), generator=g, device=dev)
+                             for g in gens])
     else:
         noise = init_noise.to(device=dev, dtype=torch.float32)
-    latents = sch.add_noise(ref_latent.float().expand(buf, h, w, 4), noise,
-                            float(plan.sigmas[0]))
+    latents = sch.add_noise(ref_latents.float()[:, None].expand(n_id, buf, h, w, 4),
+                            noise, float(plan.sigmas[0]))
     n_win = plan.window_idx.shape[1]
     per_call = cfg.windows_per_call or n_win
     tids = torch.tensor([cfg.fps, cfg.motion_bucket_id,
@@ -193,29 +233,30 @@ def sample_video(unet, cfg: SamplerConfig, plan: SamplerPlan,
         for w0 in range(0, n_win, per_call):
             idx = w_idx[w0:w0 + per_call]                   # (nw, fpb)
             nw = idx.shape[0]
-            lat = latents[idx]                              # (nw, fpb, h, w, 4)
+            lat = latents[:, idx]                           # (I, nw, fpb, h, w, 4)
             scaled = sch.scale_model_input(lat, sigma).to(dtype)
-            img = buffers.image_latents[idx].to(dtype)
+            img = buffers.image_latents[:, idx].to(dtype)
             inp = torch.cat([
-                scaled[:, None].expand(nw, 4, fpb, h, w, 4),
-                torch.stack([torch.zeros_like(img), img, img, img], dim=1),
-            ], dim=-1).reshape(nw * 4, fpb, h, w, 8)
-            pose = buffers.pose_fea[idx].to(dtype)[:, None].expand(
-                nw, 4, fpb, h, w, -1).reshape(nw * 4, fpb, h, w, -1)
+                scaled[:, :, None].expand(n_id, nw, 4, fpb, h, w, 4),
+                torch.stack([torch.zeros_like(img), img, img, img], dim=2),
+            ], dim=-1).reshape(n_id * nw * 4, fpb, h, w, 8)
+            pose = buffers.pose_fea[:, idx].to(dtype)[:, :, None].expand(
+                n_id, nw, 4, fpb, h, w, -1).reshape(n_id * nw * 4, fpb, h, w, -1)
             cond = _cfg_conditioning(buffers, idx, cfg, dtype)
-            pred = unet(inp, t_cont, cond, tids.expand(nw * 4, 3), pose)
-            pred = pred.float().reshape(nw, 4, fpb, h, w, 4)
-            u, a, b, c = pred.unbind(dim=1)
+            pred = unet(inp, t_cont, cond, tids.expand(n_id * nw * 4, 3), pose)
+            pred = pred.float().reshape(n_id, nw, 4, fpb, h, w, 4)
+            u, a, b, c = pred.unbind(dim=2)
             noise_pred = u + g1 * (a - u) + g2 * (b - a) + g3 * (c - b)
             churn = None
             if gamma > 0:
-                churn = _churn_noise(cfg, lat.shape, generator, dev)
+                churn = torch.stack([_churn_noise(cfg, lat.shape[1:], g, dev)
+                                     for g in gens])
             outs.append(sch.step(lat, noise_pred, sigma, sigma_next,
                                  cfg.scheduler.prediction_type, gamma=gamma,
                                  noise=churn, s_noise=cfg.s_noise))
-        outs = torch.cat(outs).reshape(n_win * fpb, h, w, 4)
+        outs = torch.cat(outs, dim=1).reshape(n_id, n_win * fpb, h, w, 4)
         flat = w_idx.reshape(-1)
-        summed = torch.zeros_like(latents).index_add_(0, flat, outs)
+        summed = torch.zeros_like(latents).index_add_(1, flat, outs)
         counts = torch.bincount(flat, minlength=buf).to(summed.dtype)
         latents = summed / counts[:, None, None, None]
     return latents

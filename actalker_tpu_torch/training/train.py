@@ -1,24 +1,30 @@
-"""Training driver, twin of ``actalker_tpu/training/train.py`` on its
-``--synthetic`` path: generated batches -> the differentiable step over the
-five trainable artifacts -> AdamW with clipping and accumulation ->
-optional commit-gated EMA -> ``checkpoint-<step>`` directories with
-rotation -> JSONL metrics -> optional export of the six reference ``.pth``
-files.
+"""Training entry point, twin of ``actalker_tpu/training/train.py``: batches
+(``--synthetic N`` generated ones, or ``--metadata`` clips through the
+dataset, the worker-process loader and the frozen encoders) -> the
+differentiable step over the five trainable artifacts -> AdamW with
+clipping and accumulation -> optional commit-gated EMA ->
+``checkpoint-<step>`` directories with rotation -> JSONL metrics ->
+optional export of the six reference ``.pth`` files.
 
     python -m actalker_tpu_torch.training.train --config configs/train.yaml \
-        --synthetic 8 --steps 8 --output train_output [--micro-model] \
-        [--export-reference DIR] [--device cuda|cpu]
+        (--metadata clips.json ... | --synthetic 8) [--steps 8] \
+        [--output train_output] [--micro-model] [--export-reference DIR] \
+        [--device cuda|cpu]
 
 It runs on one card (``--device cuda``, the default: bf16 compute, fp32
-master parameters and optimizer state) or on the CPU in fp32. Real data
-(``--metadata``) needs the frozen encoders' port and is refused.
+master parameters and optimizer state) or on the CPU in fp32. With
+``--metadata`` the config's ``data.num_workers`` is the number of loader
+worker processes (0: synchronous); clips are decoded by
+``frontend/video.read_frames`` unless ``main`` is handed another
+``frame_reader`` (``training/data.py::NpyFrameReader`` reads ``.npy``
+frame stacks on a machine without a video decoder).
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import time
+from types import SimpleNamespace
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -27,13 +33,23 @@ import torch
 from actalker_tpu_torch.config import read_config
 from actalker_tpu_torch.io import checkpoint as ckpt
 from actalker_tpu_torch.io import weights as W
-from actalker_tpu_torch.io.init import load_reference_checkpoints, random_init_
+from actalker_tpu_torch.io.init import (
+    cast_params_bf16_, load_arcface, load_frozen_encoders,
+    load_reference_checkpoints, random_init_)
 from actalker_tpu_torch.models.pose_guider import PoseGuider
 from actalker_tpu_torch.models.projections import (
     AudioProjModel, IDProjModel, VasaProjModel)
 from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalCondition
+from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
+from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
+from actalker_tpu_torch.models.whisper import WhisperEncoder
+from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline, PipelineModules
+from actalker_tpu_torch.training import data as D
+from actalker_tpu_torch.training.batch_builder import BatchBuilder
 from actalker_tpu_torch.training.ema import ema_init, ema_step
+from actalker_tpu_torch.training.loader import prefetch_batches
 from actalker_tpu_torch.training.trainer import TrainBatch, TrainConfig, Trainer
+from actalker_tpu_torch.utils.observability import MetricsEmitter
 
 # the reference's trainable artifacts (the adapter to_k_ip / to_v_ip rows
 # live inside the UNet and export separately)
@@ -82,10 +98,81 @@ def build_modules(ucfg: UNetConfig, device, dtype, seed: int = 0
     return mods
 
 
-def main(argv=None, observe: Optional[Callable] = None) -> Dict:
+# the checkpoint keys of the frozen encoders (``io/init.py::load_frozen_encoders``)
+_ENCODER_KEYS = ("pretrained_model_name_or_path", "whisper_model",
+                 "vasa_checkpoint_path")
+
+
+def build_pipeline(mods: Dict[str, torch.nn.Module], ckpt_cfg: Dict,
+                   reference_loaded: bool, micro: bool, device, dtype
+                   ) -> ACTalkerPipeline:
+    """The builder's pipeline: the trainer's own five modules (fp32
+    masters, so the batches and the step read the parameters the optimizer
+    updates) with the frozen VAE, whisper and VASA towers, seeded as
+    ``cli.build_pipeline`` seeds them, then loaded from the files the
+    ``checkpoints:`` section names where they exist; cast to bf16 on the
+    card. A run started from the reference's files refuses a random VAE or
+    whisper, and takes zero expression conditioning without the VASA
+    file."""
+    vcfg = VAEConfig().tiny() if micro else VAEConfig()
+    with torch.device("meta"):
+        frozen = {"vae": AutoencoderKLTemporalDecoder(vcfg, dtype=dtype),
+                  "whisper": WhisperEncoder(),
+                  "vasa_expression": HeadExpression(), "vasa_pose": HeadPose()}
+    for seed, m in zip((1, 6, 7, 8), frozen.values()):
+        random_init_(m, seed=seed, device=device)
+    paths = SimpleNamespace(**{k: (ckpt_cfg or {}).get(k) or "" for k in _ENCODER_KEYS})
+    loaded = load_frozen_encoders(paths, frozen)
+    if reference_loaded:
+        missing = {"vae", "whisper"} - loaded
+        if missing:
+            raise SystemExit(f"[train] reference checkpoints loaded but the "
+                             f"frozen encoders {sorted(missing)} are missing: "
+                             "name their files in checkpoints:")
+    print(f"[train] frozen encoders: {sorted(loaded) or 'random'}", flush=True)
+    for m in frozen.values():
+        if dtype == torch.bfloat16:
+            cast_params_bf16_(m)
+        m.eval()
+    towers = "vasa_expression" in loaded or not reference_loaded
+    pm = PipelineModules(
+        unet=mods["unet"], vae=frozen["vae"], audio_proj=mods["audio_proj"],
+        id_proj=mods["id_proj"], vasa_proj=mods["vasa_proj"],
+        pose_guider=mods["pose_guider"], whisper=frozen["whisper"],
+        vasa_expression=frozen["vasa_expression"] if towers else None,
+        vasa_pose=frozen["vasa_pose"] if towers else None)
+    return ACTalkerPipeline(pm, dtype=dtype)
+
+
+def real_batches(builder: BatchBuilder, clips, batch_size: int, frames: int,
+                 image_size: int, num_workers: int = 4, start: int = 0,
+                 stride: Optional[int] = None, frame_reader=None
+                 ) -> Iterator[TrainBatch]:
+    """Metadata-driven batches: ``PortraitAudioDataset`` over ``clips`` ->
+    ``prefetch_batches`` on ``num_workers`` worker processes -> ``builder``
+    on this process (the frozen encoders on the trainer's device).
+    ``frame_reader`` defaults to ``data.VideoFrameReader``; audio is the
+    30 s window through ``slice_audio_window`` and the log-mel."""
+    ds = D.PortraitAudioDataset(
+        clips,
+        # deterministic shapes whenever samples are stacked across a batch
+        # (keyed on stride, the global batch under data parallelism); the
+        # reference trains one sample a card with the random-size
+        # augmentation, which batch 1 keeps
+        D.DataConfig(n_sample_frames=frames, image_size=image_size,
+                     deterministic_shape=(stride or batch_size) > 1),
+        frame_reader or D.VideoFrameReader(),
+        audio_feature_reader=D.AudioWindowReader())
+    yield from prefetch_batches(ds, batch_size, builder, num_workers=num_workers,
+                                start=start, stride=stride)
+
+
+def main(argv=None, observe: Optional[Callable] = None,
+         frame_reader=None) -> Dict:
     """Run the driver; returns a summary (records per micro-step, final
     step, output directory). ``observe(trainer, record)``, if given, is
-    called once before the first micro-step (record None) and after each."""
+    called once before the first micro-step (record None) and after each.
+    ``frame_reader`` replaces the video decoder of ``--metadata`` clips."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default="configs/train.yaml")
     parser.add_argument("--metadata", type=str, nargs="*", default=[])
@@ -100,12 +187,10 @@ def main(argv=None, observe: Optional[Callable] = None) -> Dict:
                              "contract .pth artifacts to this directory")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.metadata:
-        raise NotImplementedError(
-            "--metadata needs the encoders' port (ROADMAP item 9); use "
-            "--synthetic N")
-    if not args.synthetic:
-        raise SystemExit("provide --synthetic N (generated batches)")
+    if not (args.synthetic or args.metadata):
+        raise SystemExit("provide --metadata clip JSONs (real data) or "
+                         "--synthetic N (generated batches)")
+    clips = None if args.synthetic else D.load_metadata(args.metadata)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on "
@@ -164,8 +249,21 @@ def main(argv=None, observe: Optional[Callable] = None) -> Dict:
     max_steps = args.steps or int(solver.get("max_train_steps", 250000))
     ckpt_every = int(cfg.get("checkpointing_steps", 2000))
     total_limit = int(cfg.get("total_limit", 3))
-    batches = synthetic_batches(batch_size, frames, latent_hw, seed=0,
-                                device=device)
+    builder = None
+    if args.synthetic:
+        batches = synthetic_batches(batch_size, frames, latent_hw, seed=0,
+                                    device=device)
+        n_steps = args.synthetic
+    else:
+        pipe = build_pipeline(mods, cfg.get("checkpoints"), bool(loaded),
+                              args.micro_model, device, dtype)
+        arc = cfg.get("arcface_checkpoint_path")
+        builder = BatchBuilder(pipe, arcface=load_arcface(
+            arc, device) if arc and os.path.exists(arc) else None)
+        batches = real_batches(builder, clips, batch_size, frames, image_size,
+                               num_workers=int(data_cfg.get("num_workers", 4)),
+                               frame_reader=frame_reader)
+        n_steps = max_steps - start_step
     gen = torch.Generator(device=device).manual_seed(0)
 
     def state():
@@ -181,11 +279,13 @@ def main(argv=None, observe: Optional[Callable] = None) -> Dict:
     t_start = time.perf_counter()
     if observe is not None:
         observe(trainer, None)
-    with open(os.path.join(out_dir, "metrics.jsonl"), "a") as mf:
-        for step in range(start_step, min(start_step + args.synthetic,
-                                          max_steps)):
+    emitter = MetricsEmitter(os.path.join(out_dir, "metrics.jsonl"))
+    try:
+        for step in range(start_step, min(start_step + n_steps, max_steps)):
+            t_batch = time.perf_counter()
+            batch = next(batches)
             t0 = time.perf_counter()
-            m = trainer.step(next(batches), generator=gen)
+            m = trainer.step(batch, generator=gen)
             if ema is not None:
                 ema_step(ema, mods, m["commit"])
             loss = float(m["loss"])          # waits for the step's kernels
@@ -196,15 +296,19 @@ def main(argv=None, observe: Optional[Callable] = None) -> Dict:
                    "grad_norm": (None if m["grad_norm"] is None
                                  else float(m["grad_norm"])),
                    "seconds": time.perf_counter() - t0,
+                   # blocked on the loader, and in the frozen encoders
+                   "load_seconds": t0 - t_batch - (builder.seconds if builder else 0.0),
+                   "encode_seconds": builder.seconds if builder else 0.0,
                    "sec_per_step": (time.perf_counter() - t_start)
                    / (step - start_step + 1)}
-            records.append(rec)
-            mf.write(json.dumps(rec) + "\n")
-            mf.flush()
+            records.append(emitter.emit(**rec))
             if observe is not None:
                 observe(trainer, rec)
             if ckpt_every and final_step % ckpt_every == 0:
                 ckpt.save_checkpoint(out_dir, final_step, state(), total_limit)
+    finally:
+        batches.close()          # stops the loader's worker processes
+        emitter.close()
     ckpt.save_checkpoint(out_dir, final_step, state(), total_limit)
     exported = []
     if args.export_reference:

@@ -72,7 +72,26 @@ Phases, one line each (any failure raises and exits non-zero):
      detector, landmarks, reference-image BFR, teeth, frame BFR, RIFE: 27
      frames), once to warm up and once counted, stage times printed, K1-K4
      launches derived from the model; SCRFD alone; each network on the card
-     (fp32, loaded from its file) against the same module on the CPU.
+     (fp32, loaded from its file) against the same module on the CPU;
+ 11. batched serving and training on real data: C4, four identities (each
+     its own tokens, face-box masks and generator; mode 2, 512 px, 14
+     frames, 3 steps, windows one a call, full width, bf16) through
+     ``ACTalkerPipeline.generate_latents_batch`` (one
+     ``pipeline/serving.sample_video_batch`` loop under one SSM budget)
+     against the same four through it one at a time, each under its own
+     budget (seconds, peak memory, K1-K4 launches and K1's gathered rows
+     derived from the model, identity 2 of the batch against itself
+     alone); then a seeded corpus (four clips of 64 frames at 512 px as
+     ``.npy`` stacks, since the card's machine has no video decoder, a WAV
+     each, boxes and 68-point landmarks, a seeded ArcFace file); C8, the
+     loader's samples/s at 0 and 2 worker processes on a still scene (one
+     pass of the dataset a sample), the dataset alone and with the batch
+     builder, no worker initializing CUDA, then in process on a drifting
+     scene with its resamples a sample; C2, ``training.train.main --metadata`` at the configs/train.yaml
+     operating point with 2 workers for 4 micro-steps: seconds, loader wait
+     and encoder time per micro-step, launches per micro-step derived from
+     the model, the first batch's loss through the kernels against the
+     plain versions.
 Then a JSON line with the bisect variants, one with the kernels, the card
 line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -182,6 +201,19 @@ GRAD_GROUPS = {
     "K6 dD": (r"_unit\.Ds$", 3e-2),
     "K6 dbias": (r"_unit\.dt_projs_bias$", 3e-2),
 }
+
+
+# phase 11: C4, batched serving (identities per sampler call), and the
+# real-data training path (C8 loader samples/s, C2 micro-steps)
+SERVE_IDS = 4
+# C8 / C2: the seeded corpus (clips of CORPUS_FRAMES frames at PX), the
+# loader's worker count, the samples timed per worker count, the micro-steps
+CORPUS_CLIPS, CORPUS_FRAMES = 4, 64
+LOADER_WORKERS = 2
+LOADER_SAMPLES = {0: 2, LOADER_WORKERS: 4}
+MOVING_DRIFT = (0.25, 0.5)   # sub-pixel head drift, (dy, dx) px a frame at 512 px
+REAL_MICRO_STEPS = 4
+
 
 
 def card_line():
@@ -1141,6 +1173,385 @@ def phase10(torch, dev, kernels, card):
     return counts
 
 
+class CudaProbe:
+    """A dataset wrapper that records in each sample whether the process
+    that built it had initialized CUDA (the loader's workers must not)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    @property
+    def rng(self):
+        return self.ds.rng
+
+    @rng.setter
+    def rng(self, value):
+        self.ds.rng = value
+
+    def __getitem__(self, k):
+        import torch
+
+        sample = self.ds[k]
+        sample["cuda_initialized"] = torch.cuda.is_initialized()
+        return sample
+
+
+def micro_step_launches():
+    """Launches per training micro-step with one checkpoint scope per block:
+    every forward kernel runs twice (forward, recompute); the backward runs
+    K6 once per (SS2D block, group) and K2-bwd once per spatial
+    self-attention; the builder's encoders (default configuration) none."""
+    return {"ssm_scan_grouped": 2 * 15, "mha": 2 * 16, "frame_attention": 2 * 16,
+            "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16,
+            "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
+
+
+def drifted(scene, t, drift):
+    """``scene`` moved by ``t * drift`` (dy, dx) pixels, bilinear, wrapping
+    at the borders."""
+    import numpy as np
+
+    out = scene.astype(np.float32)
+    for axis, d in enumerate(drift):
+        k, a = divmod(t * d, 1.0)
+        out = (1 - a) * np.roll(out, int(k), axis) + a * np.roll(out, int(k) + 1, axis)
+    return out
+
+
+def write_corpus(out, drift=(0.0, 0.0)):
+    """The seeded training corpus under ``out``: CORPUS_CLIPS clips of
+    CORPUS_FRAMES frames at PX x PX as ``.npy`` stacks (a scene of 8-pixel
+    blocks with per-pixel grain, still by default, else moving ``drift``
+    (dy, dx) pixels a frame), a 16 kHz WAV each, per-frame boxes and
+    68-point landmarks in ``clips.json``, and a seeded iresnet50 as the
+    ArcFace file. Returns (metadata path, ArcFace path). On the still scene
+    no sample crosses the dataset's flow gate, so each costs one pass of
+    its work: the loader's floor. The crop augmentation zooms the face box
+    by up to ~50x, so a drift can push a draw past the gate, which
+    resamples it."""
+    import wave
+
+    import numpy as np
+    import torch
+
+    from actalker_tpu_torch.models.arcface import iresnet50
+
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(11)
+    clips = []
+    for c in range(CORPUS_CLIPS):
+        scene = rng.integers(16, 240, (PX // 8, PX // 8, 3)).repeat(8, 0).repeat(8, 1)
+        scene = scene + rng.integers(-16, 16, (PX, PX, 3))        # per-pixel grain
+        frames = np.stack([np.clip(drifted(scene, t, drift), 0, 255).round()
+                           for t in range(CORPUS_FRAMES)]).astype(np.uint8)
+        video = os.path.join(out, f"clip{c}.npy")
+        np.save(video, frames)
+        audio = os.path.join(out, f"clip{c}.wav")
+        t = np.arange(int((CORPUS_FRAMES / 25 + 0.5) * 16000)) / 16000
+        with wave.open(audio, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((0.3 * np.sin(2 * np.pi * (180 + 40 * c) * t) * 32767)
+                          .astype(np.int16).tobytes())
+        box = np.array([0.3, 0.25, 0.7, 0.75]) * PX
+        boxes = box + rng.uniform(-2, 2, (CORPUS_FRAMES, 4))
+        lmks = np.stack([rng.uniform(box[0], box[2], (CORPUS_FRAMES, 68)),
+                         rng.uniform(box[1], box[3], (CORPUS_FRAMES, 68))], -1)
+        clips.append(dict(video_path=video, audio_path=audio, frames=CORPUS_FRAMES,
+                          fps=25.0, bboxes=boxes.tolist(), landmarks=lmks.tolist()))
+    meta = os.path.join(out, "clips.json")
+    with open(meta, "w") as f:
+        json.dump(clips, f)
+    torch.manual_seed(12)
+    arcface = os.path.join(out, "arcface.pth")
+    torch.save(iresnet50().state_dict(), arcface)
+    return meta, arcface
+
+
+def serve_inputs(pipe, scfg, torch):
+    """SERVE_IDS identities' sampler inputs (``prepare_sampling``): each its
+    own seeded reference, tokens and pose images, its own face box (19-35%
+    of the image; the audio mask its lower half) and its own generator.
+    Returns (plan, per-identity buffers, ref latents, generator states)."""
+    import numpy as np
+
+    plans, bufs, refs, states = [], [], [], []
+    for i in range(SERVE_IDS):
+        r = np.random.default_rng(20 + i)
+        side = int(PX * (0.44 + 0.05 * i))
+        y0, x0 = (PX - side) // 2, (PX - side) // 3
+        face = np.zeros((1, 1, PX, PX), np.float32)
+        face[..., y0:y0 + side, x0:x0 + side] = 1.0
+        mouth = np.zeros_like(face)
+        mouth[..., y0 + side // 2:y0 + side, x0:x0 + side] = 1.0
+        plan, b, ref, gen = pipe.prepare_sampling(
+            r.standard_normal((PX, PX, 3)).astype(np.float32) * 0.2,
+            r.standard_normal(512).astype(np.float32),
+            r.standard_normal((FRAMES, 32, 1024)).astype(np.float32),
+            np.zeros((FRAMES, 32, 1024), np.float32),
+            r.standard_normal((FRAMES, 1, 1024)).astype(np.float32),
+            np.zeros((FRAMES, 1, 1024), np.float32),
+            r.random((FRAMES, PX, PX, 3)).astype(np.float32), scfg, seed=i,
+            audio_mask=mouth, exp_mask=face)
+        plans.append(plan)
+        bufs.append(b)
+        refs.append(ref)
+        states.append(gen.get_state())
+    return plans[0], bufs, torch.stack(refs), states
+
+
+def phase11_serving(torch, dev, kernels, card, pipe):
+    """C4: SERVE_IDS identities through ``generate_latents_batch`` (one
+    ``sample_video_batch`` loop, each UNet call stacking them, one SSM
+    budget covering every identity's masks) against the same clips through
+    it one identity at a time (each under its own budget, as
+    ``generate_latents`` runs a clip). Returns the batched run's
+    launches."""
+    from actalker_tpu_torch.pipeline import sampler, serving
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    unet = pipe.m.unet
+    scfg = SamplerConfig(num_inference_steps=STEPS, frames_per_batch=FRAMES,
+                         windows_per_call=1, gate=(1, 1))
+    plan, bufs, refs, states = serve_inputs(pipe, scfg, torch)
+    stacked = serving.stack_buffers(bufs)
+
+    def budget(b):     # what the entry sets, to derive K1's rows from
+        return pipe._capacity_fracs(scfg, b.audio_mask[:, 0], b.exp_mask[:, 0],
+                                    (PX // 8, PX // 8))
+
+    caps = budget(stacked)
+    own_caps = [budget(serving.stack_buffers([b])) for b in bufs]
+    calls = unet_calls(scfg, FRAMES)
+    per = forward_launches(unet)
+
+    def gens():
+        out = []
+        for s in states:
+            g = torch.Generator(device=dev)
+            g.set_state(s)
+            out.append(g)
+        return out
+
+    def prepared(p):
+        return [(p, b, refs[i], g) for i, (b, g) in enumerate(zip(bufs, gens()))]
+
+    def batched(cfg=scfg, p=plan):
+        return pipe.generate_latents_batch(prepared(p), cfg)
+
+    def one_by_one(cfg=scfg, p=plan):
+        return [pipe.generate_latents_batch([one], cfg)[0] for one in prepared(p)]
+
+    warm = SamplerConfig(num_inference_steps=1, frames_per_batch=FRAMES,
+                         windows_per_call=1, gate=(1, 1))
+    runs = {}
+    for name, fn in (("batched", batched), ("sequential", one_by_one)):
+        fn(warm, sampler.make_plan(warm, FRAMES))      # warm-up, same shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        with k1_rows() as rows:
+            t0 = time.perf_counter()
+            lat = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        runs[name] = dict(lat=lat, sec=sec, rows=sorted(set(rows)),
+                          peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          counts={n: k.launches for n, k in kernels.items()})
+    if unet.config.mask_capacity is not None:
+        raise RuntimeError("C4: the serving entry left its SSM budget set")
+
+    def k1_rows_of(cs):
+        return sorted({
+            max(gathered_rows(l, c[0]) + 33, gathered_rows(l, c[1]) + 2)
+            if c else l + 33
+            for c in cs for l in ((PX // 8 // st) ** 2 for st in pipe.ssm_strides())})
+
+    b, s = runs["batched"], runs["sequential"]
+    rel = errors(b["lat"][2], s["lat"][2])[1]
+    finite = bool(torch.isfinite(b["lat"]).all())
+    for name, r, ncalls, cs in (("batched", b, calls, [caps]),
+                                ("sequential", s, SERVE_IDS * calls, own_caps)):
+        want = {n: per.get(n, 0) * ncalls for n in kernels}
+        want_rows = k1_rows_of(cs)
+        print(f"[11 C4] {name}: {SERVE_IDS} identities x {FRAMES} frames, {PX} px, "
+              f"{STEPS} steps, mode 2, own masks / tokens / generator each: "
+              f"{r['sec']:.4f} s ({r['sec'] / SERVE_IDS:.4f} s an identity, "
+              f"{r['sec'] / (SERVE_IDS * calls):.4f} s an identity-window-step; "
+              f"{ncalls} UNet calls of {SERVE_IDS * 4 if name == 'batched' else 4} "
+              f"x {FRAMES} f) | peak max_memory_allocated {r['peak']:.2f} GiB | "
+              f"capacity {cs}, K1 rows {r['rows']} (derived {want_rows}) | "
+              f"launches {r['counts']} (derived {want}) | {card}", flush=True)
+        if r["counts"] != want or r["rows"] != want_rows:
+            raise RuntimeError(f"C4 {name}: launches {r['counts']} != {want} or "
+                               f"K1 rows {r['rows']} != {want_rows}")
+    print(f"[11 C4] batched vs sequential: {s['sec'] / b['sec']:.3f}x | identity 2 "
+          f"of the batch vs alone rel_l2 {rel:.3g} (tol {UNET_TOL}) | latents "
+          f"{tuple(b['lat'].shape)} finite {finite} | {card}", flush=True)
+    if not finite or b["lat"].shape != (SERVE_IDS, FRAMES, PX // 8, PX // 8, 4) \
+            or rel > UNET_TOL:
+        raise RuntimeError(f"C4: batched latents not finite / wrong shape, or "
+                           f"identity 2 differs from itself alone (rel_l2 {rel})")
+    return b["counts"]
+
+
+def loader_rate(prefetch, ds, collate, workers, n):
+    """(seconds to the first batch, samples per second over the rest) of
+    ``n`` batches of one sample through ``prefetch_batches``."""
+    t0 = time.perf_counter()
+    stamps = []
+    gen = prefetch(ds, 1, collate, num_workers=workers, num_batches=n)
+    try:
+        for _ in gen:
+            stamps.append(time.perf_counter())
+    finally:
+        gen.close()
+    first = stamps[0] - t0
+    return first, (n - 1) / (stamps[-1] - stamps[0]), stamps[-1] - t0
+
+
+def phase11_loader(torch, dev, card, pipe, meta, arcface_path):
+    """C8: the loader's samples/s at 0 and LOADER_WORKERS workers on the
+    still corpus (one pass of the dataset's work a sample, the floor), the
+    dataset alone, then with the builder (the frozen encoders on the card)
+    as ``collate``; then the dataset alone in process on a corpus drifting
+    MOVING_DRIFT pixels a frame, with its resamples a sample."""
+    from actalker_tpu_torch.training import data as D
+    from actalker_tpu_torch.training.batch_builder import BatchBuilder
+    from actalker_tpu_torch.training.loader import prefetch_batches
+    from actalker_tpu_torch.io.init import load_arcface
+
+    builder = BatchBuilder(pipe, arcface=load_arcface(arcface_path, dev))
+    cfg = D.DataConfig(n_sample_frames=25, image_size=PX)
+    for what, collate in (("dataset alone", list), ("with the builder", builder)):
+        for workers, n in LOADER_SAMPLES.items():
+            ds = CudaProbe(D.PortraitAudioDataset(
+                D.load_metadata([meta]), cfg, D.NpyFrameReader(),
+                audio_feature_reader=D.AudioWindowReader()))
+            seen = []
+
+            def probe(samples, collate=collate):
+                seen.extend(s.pop("cuda_initialized") for s in samples)
+                return collate(samples)
+
+            first, rate, total = loader_rate(prefetch_batches, ds, probe, workers, n)
+            print(f"[11 C8] loader, {what}: {workers} workers, {n} samples of 25 "
+                  f"frames at {PX} px (batch 1, {CORPUS_CLIPS} clips of {CORPUS_FRAMES} "
+                  f"frames, .npy): first sample {first:.3f} s, then {rate:.4f} "
+                  f"samples/s ({total:.3f} s in all) | a worker initialized CUDA: "
+                  f"{any(seen) if workers else 'n/a (in-process)'} | os.cpu_count() "
+                  f"{os.cpu_count()} | {card}", flush=True)
+            if workers and any(seen):
+                raise RuntimeError("a loader worker initialized CUDA")
+    del builder
+    moving, _ = write_corpus(os.path.join(OUT, "corpus_moving"), MOVING_DRIFT)
+    ds = D.PortraitAudioDataset(D.load_metadata([moving]), cfg, D.NpyFrameReader(),
+                                audio_feature_reader=D.AudioWindowReader())
+    n = LOADER_SAMPLES[0] + 1
+    first, rate, total = loader_rate(prefetch_batches, ds, list, 0, n)
+    print(f"[11 C8] loader, dataset alone, moving corpus ({MOVING_DRIFT} px a frame, "
+          f"dy, dx): 0 workers, {n} samples: first sample {first:.3f} s, then "
+          f"{rate:.4f} samples/s ({total:.3f} s in all) | resampled {ds.resampled} "
+          f"draws, {ds.resampled / n:.3f} a sample | {card}", flush=True)
+
+
+def phase11_train(torch, dev, kernels, card, meta, arcface_path):
+    """C2: ``training.train.main --metadata`` at the configs/train.yaml
+    operating point on the corpus, LOADER_WORKERS workers, the ``.npy``
+    reader; each micro-step's seconds and its wait on the loader; the
+    launches per micro-step; one captured batch's loss through the kernels
+    and through the plain versions. Returns the launches of the run."""
+    import numpy as np
+
+    from actalker_tpu_torch.training import data as D
+    from actalker_tpu_torch.training import train
+    from actalker_tpu_torch.training.trainer import diffusion_loss, sample_draws
+
+    with open(os.path.join(ROOT, "configs", "train.yaml")) as f:
+        text = f.read()
+    cfg_path = os.path.join(OUT, "train_real.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(re.sub(r"num_workers: *\d+.*", f"num_workers: {LOADER_WORKERS}", text)
+                + f"\narcface_checkpoint_path: '{arcface_path}'\n")
+    seen = {"counts": []}
+
+    def observe(trainer, rec):
+        if rec is None:
+            step = trainer.step
+
+            def keep_first(batch, **kw):
+                seen.setdefault("batch", batch)
+                return step(batch, **kw)
+
+            trainer.step = keep_first
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        seen["counts"].append({n: k.launches for n, k in kernels.items()})
+
+    t0 = time.perf_counter()
+    res = train.main(["--config", cfg_path, "--metadata", meta, "--steps",
+                      str(REAL_MICRO_STEPS), "--output", os.path.join(OUT, "train_real")],
+                     observe=observe, frame_reader=D.NpyFrameReader())
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = res["records"]
+    per_step = [{n: c1[n] - c0[n] for n in kernels}
+                for c0, c1 in zip(seen["counts"], seen["counts"][1:])]
+    expect = micro_step_launches()
+    mods = res["modules"]
+    tcfg = train.TrainConfig()
+    batch = seen["batch"]
+    draws = sample_draws(batch, tcfg, torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        loss_k = diffusion_loss(mods, batch, tcfg, draws, dtype=torch.bfloat16)[0].item()
+        with plain_ops():
+            loss_p = diffusion_loss(mods, batch, tcfg, draws, dtype=torch.bfloat16)[0].item()
+    print(f"[11 C2] {REAL_MICRO_STEPS} micro-steps on real batches (train.main "
+          f"--metadata, {PX} px x 25 frames, batch 1, accumulation 4, block "
+          f"checkpointing, {LOADER_WORKERS} loader workers, .npy frames, seeded "
+          f"ArcFace / VAE / whisper / VASA): micro-step seconds "
+          f"{[round(r['seconds'], 4) for r in recs]} | loader wait "
+          f"{[round(r['load_seconds'], 4) for r in recs]} | encoders "
+          f"{[round(r['encode_seconds'], 4) for r in recs]} | main() {main_s:.1f} s | "
+          f"peak max_memory_allocated {peak:.2f} GiB | os.cpu_count() {os.cpu_count()} "
+          f"| {card}", flush=True)
+    print(f"[11 C2] losses {[round(r['loss'], 6) for r in recs]} | commits "
+          f"{[r['commit'] for r in recs]} | launches per micro-step {per_step} "
+          f"(expected {expect}) | first batch's loss through the kernels {loss_k:.6g}, "
+          f"plain {loss_p:.6g} (tol {UNET_TOL} relative) | {card}", flush=True)
+    if len(recs) != REAL_MICRO_STEPS or not all(np.isfinite(r["loss"]) for r in recs):
+        raise RuntimeError("real-data training losses missing or not finite")
+    if any(c != expect for c in per_step):
+        raise RuntimeError(f"launches per micro-step {per_step} != {expect}")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= UNET_TOL * abs(loss_p)):
+        raise RuntimeError(f"real batch: loss through the kernels {loss_k} vs plain {loss_p}")
+    return {n: seen["counts"][-1][n] for n in kernels}
+
+
+def phase11(torch, dev, kernels, card):
+    """C4 (batched serving), C8 (the loader), C2 (training on real data).
+    Returns the launches of C4's batched run and of C2."""
+    shutil.rmtree(OUT, ignore_errors=True)
+    meta, arcface_path = write_corpus(os.path.join(OUT, "corpus"))
+    from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline
+
+    pipe = ACTalkerPipeline(seeded_modules(torch, dev), dtype=torch.bfloat16)
+    serve = phase11_serving(torch, dev, kernels, card, pipe)
+    phase11_loader(torch, dev, card, pipe, meta, arcface_path)
+    del pipe
+    torch.cuda.empty_cache()
+    real = phase11_train(torch, dev, kernels, card, meta, arcface_path)
+    torch.cuda.empty_cache()
+    shutil.rmtree(OUT, ignore_errors=True)
+    return serve, real
+
+
 def main() -> int:
     import torch
 
@@ -1490,12 +1901,7 @@ def main() -> int:
     train_counts = {n: seen["counts"][-1][n] for n in kernels}
     secs = sorted(r["seconds"] for r in recs[-4:])
     sec_step = (secs[1] + secs[2]) / 2
-    # per micro-step with one checkpoint scope per block: every forward
-    # kernel runs twice (forward, recompute); the backward runs K6 once per
-    # (SS2D block, group) and K2-bwd once per spatial self-attention
-    expect = {"ssm_scan_grouped": 2 * 15, "mha": 2 * 16, "frame_attention": 2 * 16,
-              "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16,
-              "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
+    expect = micro_step_launches()
     print(f"[7 train] {TRAIN_MICRO_STEPS} micro-steps at 512 px x 25 frames, "
           f"batch 1, accumulation 4, block checkpointing, bf16 / fp32 masters: "
           f"seconds per micro-step {sec_step:.4f} s (median of the last 4) | "
@@ -1640,6 +2046,9 @@ def main() -> int:
     # ---- 10: the CLI's full path (face stack and post-passes) ----
     full_counts = phase10(torch, dev, kernels, card)
 
+    # ---- 11: batched serving (C4), the loader (C8), real-data training (C2) ----
+    serve_counts, real_counts = phase11(torch, dev, kernels, card)
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
                     else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
@@ -1665,7 +2074,9 @@ def main() -> int:
                              "train": train_counts[n],
                              "lineage": lineage_counts[n],
                              "cli": cli_counts[n],
-                             "cli_full": full_counts[n]},
+                             "cli_full": full_counts[n],
+                             "serve_batched": serve_counts[n],
+                             "train_real": real_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],

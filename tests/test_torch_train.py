@@ -270,7 +270,7 @@ def test_train_main_starts_from_reference_files(micro, tmp_path):
 
 
 def test_train_main_refuses_metadata_and_defaults_to_cuda():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(FileNotFoundError, match="clips.json"):
         TR.main(["--metadata", "clips.json", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
