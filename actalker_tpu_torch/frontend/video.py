@@ -18,6 +18,19 @@ def have_encoder() -> bool:
     return media_native.lib() is not None or shutil.which("ffmpeg") is not None
 
 
+def get_fps(path: str) -> float:
+    """The clip's frame rate: the native libav runtime, else OpenCV."""
+    if media_native.lib() is not None:
+        return media_native.video_info(path)[2]
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        return cap.get(cv2.CAP_PROP_FPS)
+    finally:
+        cap.release()
+
+
 def read_frames(path: str, limit: Optional[int] = None) -> np.ndarray:
     """(F, H, W, 3) uint8 RGB frames, at most ``limit``."""
     if media_native.lib() is not None:

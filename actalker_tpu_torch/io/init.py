@@ -19,7 +19,9 @@ and the VASA MX31c checkpoint's ``generator`` / ``pose_model`` dicts.
 ``load_arcface`` / ``load_yoloface`` / ``load_scrfd`` /
 ``load_face_landmarker`` / ``load_bfr`` / ``load_teeth`` / ``load_rife``
 load ArcFace's, the face stack's and the post-passes' files the same way,
-in fp32.
+in fp32, and ``load_syncnet`` / ``load_s3fd`` / ``load_fid_inception`` /
+``load_i3d`` / ``load_senet50`` / ``load_lpips`` the six evaluation
+networks' (the names the JAX package's ``convert_*`` functions read).
 """
 from __future__ import annotations
 
@@ -331,3 +333,63 @@ def load_rife(path: str, device):
           for k, v in load_state_file(path).items()}
     c = 2 * sd["block0.conv0.0.0.weight"].shape[0]
     return _load_net(lambda: IFNet(c), sd, device)
+
+
+# ------------------------------------------------------ evaluation networks
+
+def load_syncnet(path: str, device):
+    """``syncnet_v2.model`` (``netcnnaud.*`` / ``netfcaud.*`` /
+    ``netcnnlip.*`` / ``netfclip.*``) -> SyncNet."""
+    from actalker_tpu_torch.evaluation.syncnet import SyncNet
+
+    return _load_net(SyncNet, load_state_file(path), device)
+
+
+def load_s3fd(path: str, device):
+    """``sfd_face.pth`` -> S3FDNet."""
+    from actalker_tpu_torch.evaluation.s3fd import S3FDNet
+
+    return _load_net(S3FDNet, load_state_file(path), device)
+
+
+def load_fid_inception(path: str, device):
+    """``pt_inception-2015-12-05.pth`` (pytorch-fid's) -> FIDInceptionV3."""
+    from actalker_tpu_torch.evaluation.inception import FIDInceptionV3
+
+    return _load_net(FIDInceptionV3, load_state_file(path), device)
+
+
+def load_i3d(path: str, device):
+    """``i3d_rgb_charades.pt`` (pytorch_i3d's ``InceptionI3d``) ->
+    InceptionI3D, its class count read off the ``logits`` conv."""
+    from actalker_tpu_torch.evaluation.i3d import InceptionI3D
+
+    sd = load_state_file(path)
+    n = sd["logits.conv3d.weight"].shape[0]
+    return _load_net(lambda: InceptionI3D(num_classes=n), sd, device)
+
+
+def load_senet50(path: str, device):
+    """``senet50_ft_weight.pth`` (the names ``convert_senet50`` reads) ->
+    SENet50, its class count read off ``fc``."""
+    from actalker_tpu_torch.models.senet import SENet50
+
+    sd = load_state_file(path)
+    n = sd["fc.weight"].shape[0]
+    return _load_net(lambda: SENet50(num_classes=n), sd, device)
+
+
+def load_lpips(path: str, device):
+    """``lpips_alex.pth``, the ``lpips`` package's ``LPIPS(net='alex')``
+    state dict -> LPIPSAlex. The package registers its heads twice
+    (``linK`` and ``lins.K``); a file holding one of the two names fills
+    the other."""
+    from actalker_tpu_torch.evaluation.lpips import LPIPSAlex
+
+    sd = dict(load_state_file(path))
+    for k in range(5):
+        a, b = f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight"
+        if a in sd or b in sd:
+            sd.setdefault(a, sd.get(b))
+            sd.setdefault(b, sd[a])
+    return _load_net(LPIPSAlex, sd, device)

@@ -33,6 +33,12 @@ from actalker_tpu_torch.pipeline.sampler import CondBuffers, SamplerConfig, make
 from actalker_tpu_torch.pipeline.serving import sample_video_batch, stack_buffers
 
 
+def budget_of(fracs):
+    """The SSM blocks' budget from the (audio, expression) selected
+    fractions: None (masked-dense) when either exceeds 0.75."""
+    return None if max(fracs) > 0.75 else tuple(fracs)
+
+
 @dataclasses.dataclass
 class PipelineModules:
     unet: UNetSpatioTemporalCondition
@@ -169,6 +175,11 @@ class ACTalkerPipeline:
 
     def _capacity_fracs(self, config: SamplerConfig, audio_mask, exp_mask,
                         latent_hw):
+        return budget_of(self._mask_fracs(config, audio_mask, exp_mask,
+                                          latent_hw))
+
+    def _mask_fracs(self, config: SamplerConfig, audio_mask, exp_mask,
+                    latent_hw):
         """The SSM blocks' static token budgets (``SS2DCondV10``'s
         ``capacity_frac``), computed on the host (twin of the JAX pipeline's).
 
@@ -178,7 +189,10 @@ class ACTalkerPipeline:
         so the budget is a true upper bound. Fractions round up to 1/16.
         Returns None (masked-dense) when either budget exceeds 0.75: K1
         walks the longest branch's rows, so the gather pays only when both
-        budgets are small (mode 2's all-ones masks stay dense)."""
+        budgets are small (mode 2's all-ones masks stay dense).
+        ``_mask_fracs`` gives the two fractions before that choice
+        (``budget_of`` makes it): the largest over several identities'
+        masks, or over ranks, is their common budget's."""
         ga, gv = config.gate
         h8, w8 = latent_hw
         scales = self.ssm_strides()
@@ -200,8 +214,6 @@ class ACTalkerPipeline:
 
         fa = min(1.0, math.ceil(frac_of(audio_mask, ga) * 16) / 16)
         fe = min(1.0, math.ceil(frac_of(exp_mask, gv) * 16) / 16)
-        if max(fa, fe) > 0.75:
-            return None
         return (fa, fe)
 
     @torch.no_grad()
@@ -278,7 +290,7 @@ class ACTalkerPipeline:
 
     @torch.no_grad()
     def generate_latents_batch(self, prepared, config: SamplerConfig,
-                               init_noise=None) -> torch.Tensor:
+                               init_noise=None, group=None):
         """Several identities' ``prepare_sampling`` outputs (plan, buffers,
         ref_latent, generator), all of one frame count, through one
         ``serving.sample_video_batch`` loop whose UNet calls stack them.
@@ -287,17 +299,42 @@ class ACTalkerPipeline:
 
         The SSM budget is one for the whole call, as under the JAX
         package's identity vmap: ``_capacity_fracs`` of the stacked masks,
-        set for this call and restored after. Identity sharding over
-        several cards (the JAX package's ``mesh=``) waits for the port's
-        ``parallel/`` slice."""
+        set for this call and restored after.
+
+        With a process ``group`` (the JAX package's ``mesh=``) the call is
+        collective: ``prepared`` (and ``init_noise``) hold this rank's
+        contiguous block of the identities (``parallel.distributed.
+        rank_block``; possibly none), the budget's fractions are the MAX
+        over the ranks', so identity i comes out as in the single-process
+        call, and rank 0 returns every identity's latents in rank order
+        while the other ranks return None."""
+        if group is None:
+            caps = budget_of(self._mask_fracs_of(config, prepared)) \
+                if self.gather else None
+            return self._sample_block(prepared, config, init_noise, caps)
+        from actalker_tpu_torch.parallel import distributed as P
+
+        caps = None
+        if self.gather:
+            fr = self._mask_fracs_of(config, prepared) if prepared else (0.0, 0.0)
+            caps = budget_of(tuple(P.all_reduce_max(list(fr), self.device, group)))
+        block = self._sample_block(prepared, config, init_noise, caps) \
+            if prepared else None
+        return P.gather_blocks(block, self.device, torch.float32, group)
+
+    def _mask_fracs_of(self, config: SamplerConfig, prepared):
+        buffers = stack_buffers([p[1] for p in prepared])
+        return self._mask_fracs(config, buffers.audio_mask[:, 0],
+                                buffers.exp_mask[:, 0], prepared[0][2].shape[:2])
+
+    def _sample_block(self, prepared, config: SamplerConfig, init_noise, caps):
+        """``prepared``'s identities through one sampler loop under the SSM
+        budget ``caps`` (restored after)."""
         plan = prepared[0][0]
         if any(p[0].num_frames != plan.num_frames for p in prepared):
             raise ValueError("identities of one call need one frame count")
         buffers = stack_buffers([p[1] for p in prepared])
         refs = torch.stack([p[2] for p in prepared])
-        caps = self._capacity_fracs(config, buffers.audio_mask[:, 0],
-                                    buffers.exp_mask[:, 0], refs.shape[1:3]
-                                    ) if self.gather else None
         unet = self.m.unet
         saved = unet.config.mask_capacity
         unet.set_mask_capacity(caps)

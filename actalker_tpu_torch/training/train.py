@@ -9,10 +9,19 @@ optional export of the six reference ``.pth`` files.
     python -m actalker_tpu_torch.training.train --config configs/train.yaml \
         (--metadata clips.json ... | --synthetic 8) [--steps 8] \
         [--output train_output] [--micro-model] [--export-reference DIR] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--dp N]
+
+    torchrun --nproc_per_node N -m actalker_tpu_torch.training.train ...
 
 It runs on one card (``--device cuda``, the default: bf16 compute, fp32
-master parameters and optimizer state) or on the CPU in fp32. With
+master parameters and optimizer state) or on the CPU in fp32. Under
+torchrun (or any launcher that sets ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT``) it trains data-parallel with ZeRO-2
+(``trainer.ShardedOptimizer``; NCCL, gloo for ``--device cpu``):
+``data.train_bs`` is the global batch, each rank loads and steps its own
+rows, the logged loss is the global mean, and rank 0 alone writes the
+metrics, the checkpoints and the export. ``--dp`` must equal the world
+size when given; ``--tp`` above 1 is refused (not ported). With
 ``--metadata`` the config's ``data.num_workers`` is the number of loader
 worker processes (0: synchronous); clips are decoded by
 ``frontend/video.read_frames`` unless ``main`` is handed another
@@ -43,6 +52,8 @@ from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalConditi
 from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
 from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
 from actalker_tpu_torch.models.whisper import WhisperEncoder
+from actalker_tpu_torch.parallel import distributed as P
+from actalker_tpu_torch.parallel.mesh import TP_UNPORTED
 from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline, PipelineModules
 from actalker_tpu_torch.training import data as D
 from actalker_tpu_torch.training.batch_builder import BatchBuilder
@@ -186,15 +197,38 @@ def main(argv=None, observe: Optional[Callable] = None,
                         help="after training, export the six reference-"
                              "contract .pth artifacts to this directory")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="data-parallel ranks; must equal WORLD_SIZE")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor parallelism: not ported (1 only)")
     args = parser.parse_args(argv)
     if not (args.synthetic or args.metadata):
         raise SystemExit("provide --metadata clip JSONs (real data) or "
                          "--synthetic N (generated batches)")
+    if args.tp > 1:
+        raise SystemExit(TP_UNPORTED)
     clips = None if args.synthetic else D.load_metadata(args.metadata)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on "
                            "the CPU")
+    joined = not P.dist.is_initialized()
+    sharded = P.init_distributed(device)
+    joined = joined and sharded
+    try:
+        return _run(args, clips, device, sharded, observe, frame_reader)
+    finally:
+        if joined:
+            P.dist.destroy_process_group()
+
+
+def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
+    world, rank = P.world_size(), P.get_rank()
+    if args.dp is not None and args.dp != world:
+        raise SystemExit(f"--dp {args.dp} != the {world} ranks launched "
+                         "(WORLD_SIZE)")
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
 
     cfg = read_config(args.config)
     solver = cfg.get("solver") or {}
@@ -210,6 +244,7 @@ def main(argv=None, observe: Optional[Callable] = None,
         cond_dropout_prob=float(cfg.get("conditioning_dropout_prob", 0.1)),
         noise_offset=float(cfg.get("noise_offset", 0.05)))
     frames = int(data_cfg.get("n_sample_frames", 25))
+    # train_bs is the GLOBAL batch (the reference's per-card batch x cards)
     batch_size = int(data_cfg.get("train_bs", 1))
     image_size = int(data_cfg.get("image_size", 512))
     ucfg = UNetConfig(ablate=tuple(cfg.get("ablate") or ()),
@@ -218,20 +253,29 @@ def main(argv=None, observe: Optional[Callable] = None,
     if args.micro_model:
         ucfg = ucfg.micro()
         image_size, frames = 64, min(frames, 2)
+        batch_size = max(batch_size, world)
+    if batch_size % world:
+        raise SystemExit(f"train_bs ({batch_size}) must divide evenly over "
+                         f"{world} ranks")
+    local_bs = batch_size // world
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     latent_hw = image_size // 8
 
     mods = build_modules(ucfg, device, dtype)
     loaded = load_reference_checkpoints(mods, cfg.get("checkpoints"))
-    print(f"[train] init: {'reference ' + str(loaded) if loaded else 'random'}"
-          f" | UNet {sum(p.numel() for p in mods['unet'].parameters())} params"
-          f" | {image_size} px x {frames} frames, batch {batch_size}", flush=True)
+    if rank == 0:
+        print(f"[train] init: {'reference ' + str(loaded) if loaded else 'random'}"
+              f" | UNet {sum(p.numel() for p in mods['unet'].parameters())} params"
+              f" | {image_size} px x {frames} frames, batch {batch_size}"
+              f" over {world} rank(s)", flush=True)
 
     out_dir = args.output
-    os.makedirs(out_dir, exist_ok=True)
+    if rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
     use_ema = bool(cfg.get("use_ema", False))
     ema = None
     start_step = 0
+    P.barrier()            # rank 0's last checkpoint is whole before any reads
     last = ckpt.latest_checkpoint(out_dir)
     if last is not None:
         state = ckpt.restore_checkpoint(out_dir, last)
@@ -245,13 +289,14 @@ def main(argv=None, observe: Optional[Callable] = None,
     if use_ema and ema is None:
         ema = ema_init(mods)
 
-    trainer = Trainer(mods, tcfg, dtype)
+    trainer = Trainer(mods, tcfg, dtype, sharded=sharded)
     max_steps = args.steps or int(solver.get("max_train_steps", 250000))
     ckpt_every = int(cfg.get("checkpointing_steps", 2000))
     total_limit = int(cfg.get("total_limit", 3))
     builder = None
     if args.synthetic:
-        batches = synthetic_batches(batch_size, frames, latent_hw, seed=0,
+        # each rank its own stream (the JAX trainer seeds with the process)
+        batches = synthetic_batches(local_bs, frames, latent_hw, seed=rank,
                                     device=device)
         n_steps = args.synthetic
     else:
@@ -260,8 +305,9 @@ def main(argv=None, observe: Optional[Callable] = None,
         arc = cfg.get("arcface_checkpoint_path")
         builder = BatchBuilder(pipe, arcface=load_arcface(
             arc, device) if arc and os.path.exists(arc) else None)
-        batches = real_batches(builder, clips, batch_size, frames, image_size,
+        batches = real_batches(builder, clips, local_bs, frames, image_size,
                                num_workers=int(data_cfg.get("num_workers", 4)),
+                               start=rank * local_bs, stride=batch_size,
                                frame_reader=frame_reader)
         n_steps = max_steps - start_step
     gen = torch.Generator(device=device).manual_seed(0)
@@ -279,7 +325,13 @@ def main(argv=None, observe: Optional[Callable] = None,
     t_start = time.perf_counter()
     if observe is not None:
         observe(trainer, None)
-    emitter = MetricsEmitter(os.path.join(out_dir, "metrics.jsonl"))
+    emitter = MetricsEmitter(os.path.join(out_dir, "metrics.jsonl")
+                             if rank == 0 else os.devnull)
+
+    def save(step):
+        P.barrier()        # no rank still reads a checkpoint rotation removes
+        if rank == 0:
+            ckpt.save_checkpoint(out_dir, step, state(), total_limit)
     try:
         for step in range(start_step, min(start_step + n_steps, max_steps)):
             t_batch = time.perf_counter()
@@ -305,13 +357,13 @@ def main(argv=None, observe: Optional[Callable] = None,
             if observe is not None:
                 observe(trainer, rec)
             if ckpt_every and final_step % ckpt_every == 0:
-                ckpt.save_checkpoint(out_dir, final_step, state(), total_limit)
+                save(final_step)
     finally:
         batches.close()          # stops the loader's worker processes
         emitter.close()
-    ckpt.save_checkpoint(out_dir, final_step, state(), total_limit)
+    save(final_step)
     exported = []
-    if args.export_reference:
+    if args.export_reference and rank == 0:
         exported = W.export_reference_checkpoint(mods, args.export_reference,
                                                  final_step)
     return {"records": records, "final_step": final_step,

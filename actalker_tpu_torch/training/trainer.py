@@ -17,7 +17,9 @@ written out: gradients of k micro-steps are summed in ``.grad`` and their
 mean is clipped as ``g / norm * max_norm`` when ``norm >= max_norm``, then
 ``torch.optim.AdamW`` (decoupled decay, the same beta / eps) applies it on
 every k-th micro-step. Parameters (fp32 masters) and optimizer state are
-fp32; the UNet computes in ``dtype``.
+fp32; the UNet computes in ``dtype``. ``ShardedOptimizer`` is the same
+optimizer under ZeRO-2 over a process group (the reference's DeepSpeed
+``ds_zero2_8gpu.yaml``; the JAX package's ``shard_opt_state``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from actalker_tpu_torch.models.conditioning import Conditioning
+from actalker_tpu_torch.parallel.mesh import ALIGN_BYTES, BUCKET_ELEMS, ZeroLayout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,13 +78,29 @@ class LossDraws(NamedTuple):
 
 
 def sample_draws(batch: TrainBatch, cfg: TrainConfig,
-                 generator: torch.Generator) -> LossDraws:
+                 generator: torch.Generator, world: int = 1,
+                 rank: int = 0) -> LossDraws:
+    """The draws of one micro-step. Under data parallelism ``batch`` is
+    this rank's rows of a global batch of ``world`` such blocks: every rank
+    draws the global batch's draws from the same seeded generator and keeps
+    its own rows, so the sharded step is the single-process step (the JAX
+    step draws the global batch from one key and the mesh slices it)."""
     lat = batch.latents
     b, dev = lat.shape[0], lat.device
+    n = world * b
     kw = dict(generator=generator, device=dev)
-    return LossDraws(torch.randn(b, **kw), torch.randn(lat.shape, **kw),
-                     torch.randn(b, 1, 1, 1, 1, **kw),
-                     torch.rand(b, **kw) < cfg.cond_dropout_prob)
+    draws = LossDraws(torch.randn(n, **kw), torch.randn((n,) + lat.shape[1:], **kw),
+                      torch.randn(n, 1, 1, 1, 1, **kw),
+                      torch.rand(n, **kw) < cfg.cond_dropout_prob)
+    if world == 1:
+        return draws
+    return LossDraws(*(d[rank * b:(rank + 1) * b] for d in draws))
+
+
+def acc_dtype(dtype) -> torch.dtype:
+    """The loss's accumulation dtype: fp32, or float64 for a float64 step
+    (the CPU parity tests)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def head_tokens(modules: Dict[str, nn.Module], batch: TrainBatch,
@@ -92,7 +112,7 @@ def head_tokens(modules: Dict[str, nn.Module], batch: TrainBatch,
     pose_fea (B,F,h,w,c0))."""
     b, f = batch.latents.shape[:2]
     audio = modules["audio_proj"](
-        (batch.audio_feats * keep[:, None, None, None, None]).float())
+        (batch.audio_feats * keep[:, None, None, None, None]).to(acc_dtype(dtype)))
     idt = modules["id_proj"](batch.id_embed * keep[:, None])[:, None, :]
     proj = modules["vasa_proj"](batch.vasa_expr * keep[:, None, None])
     rot = batch.vasa_rot * keep[:, None, None]
@@ -103,7 +123,7 @@ def head_tokens(modules: Dict[str, nn.Module], batch: TrainBatch,
     if px.ndim == 4:     # one static pose image for every frame
         px = px[:, None].expand(b, f, *px.shape[1:])
     # the JAX guider computes in fp32 on the input rounded to ``dtype``
-    pose_fea = modules["pose_guider"](px.to(dtype).float())
+    pose_fea = modules["pose_guider"](px.to(dtype).to(acc_dtype(dtype)))
     return idt, audio, vasa, pose_fea
 
 
@@ -116,13 +136,14 @@ def diffusion_loss(modules: Dict[str, nn.Module], batch: TrainBatch,
     if draws is None:
         draws = sample_draws(batch, cfg, generator)
     b, f = batch.latents.shape[:2]
+    acc = acc_dtype(dtype)
     sigma = torch.exp(cfg.sigma_p_mean
-                      + cfg.sigma_p_std * draws.sigma_normal.float())
+                      + cfg.sigma_p_std * draws.sigma_normal.to(acc))
     sig = sigma.reshape(b, 1, 1, 1, 1)
-    noise = draws.noise.float()
+    noise = draws.noise.to(acc)
     if cfg.noise_offset:
-        noise = noise + cfg.noise_offset * draws.offset.float()
-    x0 = batch.latents.float()
+        noise = noise + cfg.noise_offset * draws.offset.to(acc)
+    x0 = batch.latents.to(acc)
     x_sigma = x0 + sig * noise
 
     keep = torch.where(draws.drop, 0.0, 1.0).to(x0.device)
@@ -137,12 +158,12 @@ def diffusion_loss(modules: Dict[str, nn.Module], batch: TrainBatch,
     c_skip = 1.0 / (sig ** 2 + 1.0)
     c_out = -sig / torch.sqrt(sig ** 2 + 1.0)
     t_cont = 0.25 * torch.log(sigma)
-    ref = batch.ref_latents[:, None].float().expand(x0.shape)
+    ref = batch.ref_latents[:, None].to(acc).expand(x0.shape)
     inp = torch.cat([c_in * x_sigma, ref], dim=-1).to(dtype)
     added = torch.stack([batch.fps, batch.motion_buckets[:, 0],
                          batch.motion_buckets[:, 1]], dim=-1).to(dtype)
     model_out = modules["unet"](inp, t_cont.to(dtype), cond, added,
-                                pose_fea.to(dtype)).float()
+                                pose_fea.to(dtype)).to(acc)
     denoised = c_skip * x_sigma + c_out * model_out
     weight = (sig ** 2 + 1.0) / sig ** 2
     loss = torch.mean(weight * torch.square(denoised - x0))
@@ -190,6 +211,159 @@ class Optimizer:
         return True, norm
 
 
+class ShardedOptimizer:
+    """ZeRO-2 twin of ``Optimizer`` over the process group's ranks (the same
+    contract: call ``step()`` after every micro-step's backward; the result
+    is ``MultiSteps(chain(clip_by_global_norm, adamw), k)`` over the global
+    batch).
+
+    The parameters become views into one flat buffer
+    (``parallel/mesh.ZeroLayout``; no second copy, so ``load_state_dict``
+    writes into them). A hook on each parameter copies its gradient into
+    the staging buffer of its bucket and frees ``.grad``; a bucket whose
+    elements have all arrived is reduce-scattered (sum / world: each
+    rank's loss is a mean over its own rows) into this rank's fp32
+    accumulator shard, so only buckets still filling hold full gradients.
+    ``step()`` then sends the buckets that parameters the forward never
+    read kept open (their gradient is zero, so AdamW still decays them),
+    and checks that every rank sent the buckets in one order. At the
+    commit: divide by k, take the global norm from an all-reduce of the
+    shards' squared norms, clip as optax does, run AdamW (decoupled decay)
+    on the shard with moments of ``ceil(N / world)`` elements, then
+    all-gather the updated parameters bucket by bucket."""
+
+    def __init__(self, params, cfg: TrainConfig):
+        self.params = [p for p in params if p.requires_grad]
+        self.k = max(1, cfg.grad_accum_steps)
+        self.max_norm = cfg.max_grad_norm
+        self.cfg = cfg
+        self.mini_step = self.step_count = 0
+        self.world, self.rank = dist.get_world_size(), dist.get_rank()
+        # the backward reaches the last-registered parameters first
+        order = self.params[::-1]
+        dtype, dev = self.params[0].dtype, self.params[0].device
+        self.layout = ZeroLayout([p.numel() for p in order], self.world, BUCKET_ELEMS,
+                                 align=ALIGN_BYTES // self.params[0].element_size())
+        if any(p.dtype != dtype or p.device != dev for p in self.params):
+            raise ValueError("ShardedOptimizer: parameters of one dtype and "
+                             "device (the fp32 masters) only")
+        self.flat = torch.zeros(self.layout.padded, dtype=dtype, device=dev)
+        self._where = {}
+        with torch.no_grad():
+            for p, off in zip(order, self.layout.offsets):
+                n = p.numel()
+                self.flat[off:off + n].copy_(p.detach().reshape(-1))
+                p.data = self.flat[off:off + n].view_as(p)
+                self._where[id(p)] = (off, n)
+        shard = self.layout.shard_numel
+        self.grad = torch.zeros(shard, dtype=dtype, device=dev)
+        self.exp_avg = torch.zeros(shard, dtype=dtype, device=dev)
+        self.exp_avg_sq = torch.zeros(shard, dtype=dtype, device=dev)
+        self._staged: Dict[int, torch.Tensor] = {}
+        self._reset_backward()
+        self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
+                       for p in order]
+
+    def _reset_backward(self):
+        self._pending = [b.real for b in self.layout.buckets]
+        self._seen = set()
+        self._sent = []
+
+    def _own(self, t: torch.Tensor, b) -> torch.Tensor:
+        """This rank's chunk of bucket ``b`` in a shard-sized tensor."""
+        return t[b.shard_start:b.shard_start + b.chunk]
+
+    def _on_grad(self, p: torch.Tensor) -> None:
+        if id(p) in self._seen:
+            raise RuntimeError("a parameter's gradient arrived twice in one "
+                               "backward")
+        self._seen.add(id(p))
+        off, n = self._where[id(p)]
+        g = p.grad.reshape(-1)
+        for j in self.layout.buckets_of(off, n):
+            b = self.layout.buckets[j]
+            lo, hi = max(off, b.start), min(off + n, b.stop)
+            self._stage(j)[lo - b.start:hi - b.start].copy_(g[lo - off:hi - off])
+            self._pending[j] -= hi - lo
+            if self._pending[j] == 0:
+                self._send(j)
+        p.grad = None
+
+    def _stage(self, j: int) -> torch.Tensor:
+        if j not in self._staged:
+            b = self.layout.buckets[j]
+            self._staged[j] = self.flat.new_zeros(self.world * b.chunk)
+        return self._staged[j]
+
+    def _send(self, j: int) -> None:
+        """Reduce-scatter bucket ``j`` into the accumulator shard."""
+        b = self.layout.buckets[j]
+        out = self.flat.new_empty(b.chunk)
+        dist.reduce_scatter_tensor(out, self._stage(j))
+        del self._staged[j]
+        self._own(self.grad, b).add_(out, alpha=1.0 / self.world)
+        self._sent.append(j)
+
+    def _finish_backward(self) -> None:
+        for j, left in enumerate(self._pending):
+            if left:
+                self._send(j)
+        # every rank must have summed the same bucket at each call: a
+        # polynomial hash of the order sent (exact in float64)
+        sig = 0
+        for j in self._sent:
+            sig = (sig * 1000003 + j + 1) % (2 ** 31 - 1)
+        t = torch.tensor([sig, -sig], dtype=torch.float64, device=self.flat.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        if t[0].item() != -t[1].item():
+            raise RuntimeError("ranks reduced their gradient buckets in "
+                               "different orders")
+        self._reset_backward()
+
+    def step(self):
+        """Returns (committed, global norm of the applied mean gradient or
+        None)."""
+        self._finish_backward()
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return False, None
+        self.mini_step = 0
+        g = self.grad
+        if self.k > 1:
+            g.div_(float(self.k))
+        sq = torch.linalg.vector_norm(g).square().reshape(1)
+        dist.all_reduce(sq)
+        norm = sq.sqrt()[0]
+        # optax: where(norm < max, g, g / norm * max)
+        clip = norm >= self.max_norm
+        g.div_(torch.where(clip, norm, 1.0))
+        g.mul_(torch.where(clip, self.max_norm, 1.0))
+        self._adamw()
+        g.zero_()
+        return True, norm
+
+    @torch.no_grad()
+    def _adamw(self) -> None:
+        """``torch.optim.AdamW``'s update on this rank's shard, a bucket's
+        chunk at a time, then the all-gather of each bucket."""
+        c = self.cfg
+        self.step_count += 1
+        lr, b1, b2 = c.learning_rate, c.adam_b1, c.adam_b2
+        step_size = lr / (1 - b1 ** self.step_count)
+        bc2_sqrt = (1 - b2 ** self.step_count) ** 0.5
+        for b in self.layout.buckets:
+            start = b.start + self.rank * b.chunk
+            p = self.flat[start:start + b.chunk]
+            g, m, v = (self._own(t, b) for t in (self.grad, self.exp_avg,
+                                                 self.exp_avg_sq))
+            p.mul_(1 - lr * c.weight_decay)
+            m.lerp_(g, 1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            denom = (v.sqrt() / bc2_sqrt).add_(c.adam_eps)
+            p.addcdiv_(m, denom, value=-step_size)
+            dist.all_gather_into_tensor(self.flat[b.start:b.stop], p.clone())
+
+
 def make_optimizer(modules: Dict[str, nn.Module], cfg: TrainConfig) -> Optimizer:
     return Optimizer([p for m in modules.values() for p in m.parameters()], cfg)
 
@@ -197,17 +371,35 @@ def make_optimizer(modules: Dict[str, nn.Module], cfg: TrainConfig) -> Optimizer
 class Trainer:
     """One differentiable micro-step over the trainable modules (``unet``,
     ``pose_guider``, ``audio_proj``, ``id_proj``, ``vasa_proj``; the
-    IP-adapter rows live in the UNet) followed by the optimizer."""
+    IP-adapter rows live in the UNet) followed by the optimizer.
+
+    With ``sharded`` (a process group is up) the batch is this rank's rows
+    of the global batch, the optimizer is ``ShardedOptimizer`` over the
+    group's ranks, the draws are the global batch's rows of this rank, and
+    the returned ``loss`` is the global mean."""
 
     def __init__(self, modules: Dict[str, nn.Module], cfg: TrainConfig,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, sharded: bool = False):
         self.modules, self.cfg, self.dtype = modules, cfg, dtype
-        self.optimizer = make_optimizer(modules, cfg)
+        self.sharded = sharded
+        if sharded:
+            self.world, self.rank = dist.get_world_size(), dist.get_rank()
+            self.optimizer = ShardedOptimizer(
+                [p for m in modules.values() for p in m.parameters()], cfg)
+        else:
+            self.world, self.rank = 1, 0
+            self.optimizer = make_optimizer(modules, cfg)
 
     def step(self, batch: TrainBatch, draws: Optional[LossDraws] = None,
              generator: Optional[torch.Generator] = None) -> Dict:
+        if draws is None:
+            draws = sample_draws(batch, self.cfg, generator, self.world, self.rank)
         loss, metrics = diffusion_loss(self.modules, batch, self.cfg, draws,
                                        generator, self.dtype)
         loss.backward()
         metrics["commit"], metrics["grad_norm"] = self.optimizer.step()
+        if self.sharded:
+            total = metrics["loss"].reshape(1).clone()
+            dist.all_reduce(total)
+            metrics["loss"] = total[0] / self.world
         return metrics

@@ -91,7 +91,25 @@ Phases, one line each (any failure raises and exits non-zero):
      operating point with 2 workers for 4 micro-steps: seconds, loader wait
      and encoder time per micro-step, launches per micro-step derived from
      the model, the first batch's loss through the kernels against the
-     plain versions.
+     plain versions;
+ 12. data parallelism over NCCL at world 1 (torchrun's environment set by
+     the script): ``training.train.main --synthetic 4 --dp 1`` through
+     ``parallel.distributed.init_distributed`` at phase 7's operating
+     point, so the ZeRO-2 optimizer takes the first commit: losses and
+     parameters after it against phase 7's (the non-distributed trainer on
+     the same seeds and batches), launches per micro-step derived from the
+     model, seconds and peak memory beside phase 7's, ``per_rank_bytes``
+     at world 1 / 4 / 8; then two identities through the rank-split
+     ``generate_latents_batch`` (one step, the phase-5 cut) against the
+     same call without a group;
+ 13. evaluation: the six networks (SyncNet, S3FD, FID InceptionV3, I3D,
+     SENet-50, LPIPS-Alex) seeded at their published widths and saved as
+     the reference's files, each loaded on the card and on the CPU and run
+     on the same inputs (rel L2, ms a call); ``run_eval.main --npy --device
+     cuda`` over two generated / reference pairs of 27 frames at 512 px as
+     ``.npy`` stacks with WAVs, twice; each metric's seconds on one clip;
+     ``SyncEvaluator.evaluate_tube`` on a seeded 30-frame tube, card
+     against CPU.
 Then a JSON line with the bisect variants, one with the kernels, the card
 line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -213,6 +231,19 @@ LOADER_WORKERS = 2
 LOADER_SAMPLES = {0: 2, LOADER_WORKERS: 4}
 MOVING_DRIFT = (0.25, 0.5)   # sub-pixel head drift, (dy, dx) px a frame at 512 px
 REAL_MICRO_STEPS = 4
+# phase 12: ZeRO-2 at world 1 takes phase 7's first commit; it computes the
+# same AdamW step on the same fp32 gradients, only the global norm sums in
+# another order: losses and parameters after the commit within fp32
+# rounding. The rank-split serving call at world 1 runs the same kernels on
+# the same inputs as the call without a group
+SHARDED_MICRO_STEPS = 4
+SHARDED_TOL = 1e-5
+SPLIT_IDS = 2
+SPLIT_TOL = 1e-6
+# phase 13: the evaluation clips' length (>= 16 for FVD), and SyncNet's
+# scores on the card against the CPU (the towers agree to FACE_NET_TOL)
+EVAL_FRAMES = 27
+SYNC_TOL = 1e-3
 
 
 
@@ -1272,15 +1303,15 @@ def write_corpus(out, drift=(0.0, 0.0)):
     return meta, arcface
 
 
-def serve_inputs(pipe, scfg, torch):
-    """SERVE_IDS identities' sampler inputs (``prepare_sampling``): each its
+def serve_inputs(pipe, scfg, torch, n=SERVE_IDS):
+    """``n`` identities' sampler inputs (``prepare_sampling``): each its
     own seeded reference, tokens and pose images, its own face box (19-35%
     of the image; the audio mask its lower half) and its own generator.
     Returns (plan, per-identity buffers, ref latents, generator states)."""
     import numpy as np
 
     plans, bufs, refs, states = [], [], [], []
-    for i in range(SERVE_IDS):
+    for i in range(n):
         r = np.random.default_rng(20 + i)
         side = int(PX * (0.44 + 0.05 * i))
         y0, x0 = (PX - side) // 2, (PX - side) // 3
@@ -1550,6 +1581,348 @@ def phase11(torch, dev, kernels, card):
     torch.cuda.empty_cache()
     shutil.rmtree(OUT, ignore_errors=True)
     return serve, real
+
+
+def commit_snapshot(modules):
+    """Every trainable parameter, copied to the host (phase 7 after its
+    first commit: phase 12's reference)."""
+    return {name: {k: p.detach().to("cpu", copy=True) for k, p in m.named_parameters()}
+            for name, m in modules.items()}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase12(torch, dev, kernels, card, phase7):
+    """``training.train.main --synthetic 4 --dp 1`` under ``init_distributed``
+    (torchrun's environment set here: one rank, NCCL) at phase 7's operating
+    point, so ZeRO-2 (``ShardedOptimizer``) takes the one commit: losses and
+    parameters after the commit against phase 7's first four micro-steps
+    (the non-distributed ``Optimizer``, same seeds and batches), launches per
+    micro-step derived from the model, seconds and peak memory beside phase
+    7's, the per-rank bytes at world 1 / 4 / 8; then SPLIT_IDS identities
+    through the rank-split ``generate_latents_batch`` against the same call
+    without a group. Returns the launches of the training run and of the
+    split call."""
+    import torch.distributed as dist
+
+    from actalker_tpu_torch.parallel import distributed as P
+    from actalker_tpu_torch.parallel.mesh import per_rank_bytes
+    from actalker_tpu_torch.training import train
+    from actalker_tpu_torch.training.trainer import ShardedOptimizer
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    if not P.init_distributed("cuda") or dist.get_backend() != "nccl":
+        raise RuntimeError("phase 12: no NCCL process group from the environment")
+    try:
+        shutil.rmtree(OUT, ignore_errors=True)
+        seen = {"counts": []}
+
+        def observe(trainer, rec):
+            if rec is None:
+                if not isinstance(trainer.optimizer, ShardedOptimizer):
+                    raise RuntimeError("train.main under a process group did not "
+                                       "take the ZeRO-2 optimizer")
+                seen["opt"] = trainer.optimizer
+                for k in kernels.values():
+                    k.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+            seen["counts"].append({n: k.launches for n, k in kernels.items()})
+
+        t0 = time.perf_counter()
+        res = train.main(["--config", os.path.join(ROOT, "configs", "train.yaml"),
+                          "--synthetic", str(SHARDED_MICRO_STEPS), "--steps",
+                          str(SHARDED_MICRO_STEPS), "--dp", "1", "--output",
+                          os.path.join(OUT, "train_sharded")], observe=observe)
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs, opt = res["records"], seen.pop("opt")
+        per_step = [{n: c1[n] - c0[n] for n in kernels}
+                    for c0, c1 in zip(seen["counts"], seen["counts"][1:])]
+        secs = sorted(r["seconds"] for r in recs)
+        sec_step = (secs[1] + secs[2]) / 2
+        loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(recs, phase7["records"])]
+        param_rel = {}
+        for name, m in res["modules"].items():
+            ref = phase7["committed"][name]
+            num = den = 0.0
+            for k, p in m.named_parameters():
+                r = ref[k].to(dev)
+                num += float((p.detach() - r).double().square().sum())
+                den += float(r.double().square().sum())
+            param_rel[name] = math.sqrt(num / den)
+        n_params = opt.layout.numel
+        held = {"masters": opt.flat.numel() * 4, "moments": 2 * opt.exp_avg.numel() * 4,
+                "grads": opt.grad.numel() * 4}
+        expect = micro_step_launches()
+        print(f"[12 zero2] train.main --synthetic {SHARDED_MICRO_STEPS} --dp 1 under "
+              f"init_distributed ({dist.get_backend()}, world {dist.get_world_size()}), "
+              f"ShardedOptimizer over {n_params} parameters in {len(opt.layout.buckets)} "
+              f"buckets: seconds per micro-step {sec_step:.4f} (median of the middle two "
+              f"of {SHARDED_MICRO_STEPS}; phase 7 {phase7['sec_step']:.4f}) {[round(r['seconds'], 4) for r in recs]} | "
+              f"peak max_memory_allocated {peak:.2f} GiB (phase 7 "
+              f"{phase7['peak_gib']:.2f}) | main() {main_s:.1f} s | {card}", flush=True)
+        print(f"[12 zero2] losses {[round(r['loss'], 6) for r in recs]} vs phase 7 "
+              f"{[round(r['loss'], 6) for r in phase7['records']]} (rel "
+              f"{[f'{x:.3g}' for x in loss_rel]}) | parameters after the commit vs "
+              f"phase 7's, rel_l2 { {n: f'{x:.3g}' for n, x in param_rel.items()} } "
+              f"(tol {SHARDED_TOL}) | commits {[r['commit'] for r in recs]} | grad_norm "
+              f"{recs[-1]['grad_norm']} (phase 7 {phase7['records'][-1]['grad_norm']}) "
+              f"| {card}", flush=True)
+        gb = {w: {k: round(v / 1e9, 3) for k, v in per_rank_bytes(n_params, w).items()}
+              for w in (1, 4, 8)}
+        print(f"[12 zero2] per_rank_bytes (GB) {gb} | held by this rank (GB) "
+              f"{ {k: round(v / 1e9, 3) for k, v in held.items()} } | launches per "
+              f"micro-step {per_step[-1]} (expected {expect})", flush=True)
+        if len(recs) != SHARDED_MICRO_STEPS or [r["commit"] for r in recs] != \
+                [i == SHARDED_MICRO_STEPS - 1 for i in range(SHARDED_MICRO_STEPS)]:
+            raise RuntimeError("ZeRO-2 run: records or commits wrong")
+        if any(c != expect for c in per_step):
+            raise RuntimeError(f"ZeRO-2 launches per micro-step {per_step} != {expect}")
+        if max(loss_rel) > SHARDED_TOL or max(param_rel.values()) > SHARDED_TOL:
+            raise RuntimeError("ZeRO-2 at world 1 differs from the non-distributed "
+                               "trainer")
+        if {k: v for k, v in held.items()} != {k: per_rank_bytes(n_params, 1)[k]
+                                              for k in held}:
+            raise RuntimeError(f"the rank holds {held}, not per_rank_bytes")
+        train_counts = {n: seen["counts"][-1][n] for n in kernels}
+        del res, opt, seen
+        torch.cuda.empty_cache()
+        split_counts = phase12_serving(torch, dev, kernels, card, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(OUT, ignore_errors=True)
+    return train_counts, split_counts
+
+
+def phase12_serving(torch, dev, kernels, card, group):
+    """SPLIT_IDS identities (the phase-5 cut, one step) through
+    ``generate_latents_batch`` over ``group`` (world 1: the MAX of the
+    budgets and the gather to rank 0 over NCCL) against the same call
+    without it. Returns the split call's launches."""
+    from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    pipe = ACTalkerPipeline(seeded_modules(torch, dev), dtype=torch.bfloat16)
+    scfg = SamplerConfig(num_inference_steps=1, frames_per_batch=FRAMES,
+                         windows_per_call=1, gate=(1, 1))
+    plan, bufs, refs, states = serve_inputs(pipe, scfg, torch, SPLIT_IDS)
+
+    def prepared():
+        out = []
+        for i, (b, s) in enumerate(zip(bufs, states)):
+            g = torch.Generator(device=dev)
+            g.set_state(s)
+            out.append((plan, b, refs[i], g))
+        return out
+
+    runs = {}
+    for name, kw in (("alone", {}), ("split", {"group": group})):
+        pipe.generate_latents_batch(prepared(), scfg, **kw)          # warm-up
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        lat = pipe.generate_latents_batch(prepared(), scfg, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (lat, time.perf_counter() - t0,
+                      {n: k.launches for n, k in kernels.items()})
+    (a, sec_a, _), (b, sec_b, counts) = runs["alone"], runs["split"]
+    per = forward_launches(pipe.m.unet)
+    want = {n: per.get(n, 0) * unet_calls(scfg, FRAMES) for n in kernels}
+    rel = errors(b, a)[1]
+    print(f"[12 serve] {SPLIT_IDS} identities, {PX} px x {FRAMES} frames, 1 step, "
+          f"mode 2 with face-box masks: rank-split generate_latents_batch (NCCL, world "
+          f"1) {sec_b:.4f} s vs without a group {sec_a:.4f} s | latents "
+          f"{tuple(b.shape)} rel_l2 {rel:.3g} (tol {SPLIT_TOL}) | launches {counts} "
+          f"(derived {want}) | {card}", flush=True)
+    if b.shape != a.shape or not torch.isfinite(b).all() or rel > SPLIT_TOL:
+        raise RuntimeError(f"rank-split serving differs from the call without a group "
+                           f"(rel_l2 {rel})")
+    if counts != want:
+        raise RuntimeError(f"rank-split serving launches {counts} != derived {want}")
+    del pipe, runs, a, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def eval_cases(torch):
+    """The six evaluation networks' seeded inputs at the path's sizes and
+    how each is called: key -> (inputs, call(net, *inputs))."""
+    import numpy as np
+
+    r = np.random.default_rng(13)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(r.uniform(lo, hi, shape).astype(np.float32))
+
+    return {
+        "syncnet": ((u(20, 1, 13, 20, lo=-20, hi=20), u(4, 3, 5, 224, 224, hi=255)),
+                    lambda n, a, l: (n.forward_aud(a), n.forward_lip(l))),
+        "s3fd": ((u(1, 3, 128, 128, lo=-120, hi=130),), lambda n, x: n(x)),
+        "fid_inception": ((u(4, 3, 299, 299),), lambda n, x: n(x)),
+        "i3d": ((u(2, 3, 16, 224, 224),), lambda n, x: n(x)),
+        "senet50": ((u(4, 3, 224, 224, lo=-120, hi=140),), lambda n, x: n(x)),
+        "lpips": ((u(4, 3, 256, 256, lo=-1), u(4, 3, 256, 256, lo=-1)),
+                  lambda n, x, y: n(x, y)),
+    }
+
+
+def write_eval_clips(out):
+    """Two generated / reference pairs of EVAL_FRAMES frames at PX px as
+    ``.npy`` stacks (a seeded block scene drifting a pixel a frame; the
+    reference shifted in value), a 16 kHz tone as each clip's WAV beside
+    it, and a reference image each. Returns the three directories."""
+    import wave
+
+    import numpy as np
+    from PIL import Image
+
+    dirs = {k: os.path.join(out, k) for k in ("gen", "ref", "img")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    r = np.random.default_rng(14)
+    for i in range(2):
+        scene = r.integers(16, 240, (PX // 8, PX // 8, 3)).repeat(8, 0).repeat(8, 1)
+        for kind, shift in (("gen", 0), ("ref", 9)):
+            frames = np.stack([np.clip(np.roll(scene, t, 1) + shift, 0, 255)
+                               for t in range(EVAL_FRAMES)]).astype(np.uint8)
+            np.save(os.path.join(dirs[kind], f"clip{i}.npy"), frames)
+            t = np.arange(int(EVAL_FRAMES / 25 * 16000)) / 16000
+            with wave.open(os.path.join(dirs[kind], f"clip{i}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t) * 32767)
+                              .astype(np.int16).tobytes())
+        Image.fromarray(scene[::2, ::2].astype(np.uint8)).save(
+            os.path.join(dirs["img"], f"clip{i}.png"))
+    return dirs
+
+
+def phase13(torch, dev, card):
+    """The evaluation entry point: the six networks seeded at their
+    published widths and saved as the reference's files
+    (``tools/eval_weights.py``), each loaded on the card and on the CPU and
+    run on the same inputs (rel L2, ms on the card); ``run_eval.main --npy
+    --device cuda`` over two generated / reference clip pairs of
+    EVAL_FRAMES frames; the seconds of each metric's work on one clip; and
+    ``SyncEvaluator.evaluate_tube`` on a seeded 30-frame tube, card
+    against CPU."""
+    import numpy as np
+
+    from actalker_tpu_torch.evaluation import run_eval as R
+    from actalker_tpu_torch.evaluation.lpips import lpips_distance
+    from actalker_tpu_torch.evaluation.sync_eval import SyncEvaluator, evaluate_sync
+    from actalker_tpu_torch.io import init as I
+    from actalker_tpu_torch.tools.eval_weights import EVAL_FILES, write_seeded_weights
+
+    out = os.path.join(OUT, "eval")
+    shutil.rmtree(out, ignore_errors=True)
+    weights = os.path.join(out, "weights")
+    paths = write_seeded_weights(weights, seed=0)
+    loaders = {"syncnet": I.load_syncnet, "s3fd": I.load_s3fd,
+               "fid_inception": I.load_fid_inception, "i3d": I.load_i3d,
+               "senet50": I.load_senet50, "lpips": I.load_lpips}
+    for key, (inputs, call) in eval_cases(torch).items():
+        card_net, cpu_net = loaders[key](paths[key], dev), loaders[key](paths[key], "cpu")
+        on_card = [x.to(dev) for x in inputs]
+        with torch.no_grad():
+            y_card = flat_output(torch, call(card_net, *on_card))
+            y_cpu = flat_output(torch, call(cpu_net, *inputs))
+            ms = timed(torch, lambda: call(card_net, *on_card), 5)
+        rel = float((y_card - y_cpu).norm() / y_cpu.norm())
+        n_params = sum(p.numel() for p in card_net.parameters())
+        print(f"[13 net] {key} ({EVAL_FILES[key][0]}, {n_params} parameters, "
+              f"strict=True): card vs CPU rel_l2 {rel:.3g} (tol {FACE_NET_TOL}) over "
+              f"{y_cpu.numel()} outputs | {ms:.4f} ms a call on inputs "
+              f"{[tuple(x.shape) for x in inputs]} | {card}", flush=True)
+        if not (rel <= FACE_NET_TOL and torch.isfinite(y_card).all()):
+            raise RuntimeError(f"{key}: card vs CPU rel_l2 {rel}")
+        del card_net, cpu_net, on_card
+    torch.cuda.empty_cache()
+
+    dirs = write_eval_clips(out)
+    argv = ["--video_dir", dirs["gen"], "--ref_video_dir", dirs["ref"], "--image_dir",
+            dirs["img"], "--weights_dir", weights, "--out", os.path.join(out, "r.jsonl"),
+            "--device", dev.type, "--npy"]
+    t0 = time.perf_counter()
+    recs = R.main(argv)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs2 = R.main(argv)
+    again = time.perf_counter() - t0
+    summary = recs[-1]
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            math.isclose(v, b[k], rel_tol=1e-3, abs_tol=1e-4)
+            if isinstance(v, float) else v == b[k] for k, v in a.items())
+
+    print(f"[13 run_eval] run_eval.main --npy --device {dev.type} over 2 clip pairs of "
+          f"{EVAL_FRAMES} frames at {PX} px, seeded weights: {first:.3f} s (loads "
+          f"included), again {again:.3f} s | summary {summary} | clip records "
+          f"{recs[:-1]} | {card}", flush=True)
+    scores = ("id_cosine", "psnr", "l1", "lpips", "fid", "fvd")
+    if len(recs) != 3 or not all(same(a, b) for a, b in zip(recs, recs2)) or not all(
+            summary[k] is not None and math.isfinite(summary[k]) for k in scores) \
+            or any(r.get("sync_note") != "no face track" for r in recs[:-1]):
+        raise RuntimeError(f"run_eval: records malformed or not repeatable: {recs}")
+
+    # each metric's work on one clip pair, warm
+    models = R.EvalModels(weights, dev)
+    reader = R.NpyClipReader()
+    gen0, ref0 = (os.path.join(dirs[k], "clip0.npy") for k in ("gen", "ref"))
+    f, g = reader.frames(gen0), reader.frames(ref0)
+    f01, g01 = f.astype(np.float32) / 255.0, g.astype(np.float32) / 255.0
+    syncnet, s3fd = models.sync()
+    x, y = (torch.from_numpy(v * 2 - 1).to(dev) for v in (f01, g01))
+    work = {
+        "sync (S3FD on every frame, scenes, tracks)": lambda: evaluate_sync(
+            gen0, syncnet, s3fd, reader, R.wav_beside),
+        "id_cosine (SENet-50)": lambda: models.face_embed()(f),
+        "lpips": lambda: lpips_distance(models.lpips(), x, y),
+        "fid features (InceptionV3)": lambda: models.inception()(
+            R.resize_frames01(f01, 299, dev)),
+        "fvd features (I3D, 16 frames)": lambda: models.i3d()(
+            R.resize_frames01(f01[:16], 224, dev)[None]),
+    }
+    secs = {}
+    for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 4)
+    print(f"[13 metrics] seconds on one {EVAL_FRAMES}-frame {PX} px clip, warm: {secs} "
+          f"| {card}", flush=True)
+
+    # SyncNet scoring on a seeded tube, card against CPU
+    r = np.random.default_rng(15)
+    tube = r.integers(0, 255, (30, 224, 224, 3), dtype=np.uint8)
+    audio = (r.standard_normal(int(30 / 25 * 16000)) * 3000).astype(np.int16)
+    t0 = time.perf_counter()
+    on_card = SyncEvaluator(syncnet=syncnet).evaluate_tube(tube, audio)
+    tube_s = time.perf_counter() - t0
+    on_cpu = SyncEvaluator(syncnet=I.load_syncnet(paths["syncnet"], "cpu")).evaluate_tube(
+        tube, audio)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on_card[1:], on_cpu[1:]))
+    print(f"[13 sync] evaluate_tube, 30 frames: card {on_card} in {tube_s:.4f} s, CPU "
+          f"{on_cpu} (offset equal, confidence / distance rel {rel:.3g}, tol "
+          f"{SYNC_TOL}) | {card}", flush=True)
+    if on_card[0] != on_cpu[0] or rel > SYNC_TOL:
+        raise RuntimeError(f"evaluate_tube on the card {on_card} vs CPU {on_cpu}")
+    del models, syncnet, s3fd, x, y
+    torch.cuda.empty_cache()
+    shutil.rmtree(OUT, ignore_errors=True)
 
 
 def main() -> int:
@@ -1886,6 +2259,8 @@ def main() -> int:
         else:
             seen["moved"].append({n: not torch.equal(p, seen["before"][n])
                                   for n, p in watched(trainer).items()})
+            if rec["step"] == SHARDED_MICRO_STEPS - 1:  # phase 12's reference
+                seen["committed"] = commit_snapshot(trainer.modules)
         seen["counts"].append({n: k.launches for n, k in kernels.items()})
 
     t0 = time.perf_counter()
@@ -1936,6 +2311,8 @@ def main() -> int:
     print(f"[7 train] checkpoint-{ckpt.latest_checkpoint(out_dir)} reloads equal; "
           f"exported {sorted(os.path.basename(p) for p in res['exported'])}",
           flush=True)
+    phase7 = {"records": recs[:SHARDED_MICRO_STEPS], "sec_step": sec_step,
+              "peak_gib": peak_gib, "committed": seen.pop("committed")}
     del res, state
     shutil.rmtree(OUT, ignore_errors=True)
 
@@ -2049,6 +2426,13 @@ def main() -> int:
     # ---- 11: batched serving (C4), the loader (C8), real-data training (C2) ----
     serve_counts, real_counts = phase11(torch, dev, kernels, card)
 
+    # ---- 12: ZeRO-2 training and rank-split serving under NCCL, world 1 ----
+    sharded_counts, split_counts = phase12(torch, dev, kernels, card, phase7)
+    del phase7
+
+    # ---- 13: the evaluation networks and run_eval on the card ----
+    phase13(torch, dev, card)
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
                     else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
@@ -2076,7 +2460,9 @@ def main() -> int:
                              "cli": cli_counts[n],
                              "cli_full": full_counts[n],
                              "serve_batched": serve_counts[n],
-                             "train_real": real_counts[n]},
+                             "train_real": real_counts[n],
+                             "train_sharded": sharded_counts[n],
+                             "serve_split": split_counts[n]},
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],
