@@ -19,6 +19,7 @@ and the VASA MX31c checkpoint's ``generator`` / ``pose_model`` dicts.
 ``load_arcface`` / ``load_yoloface`` / ``load_scrfd`` /
 ``load_face_landmarker`` / ``load_bfr`` / ``load_teeth`` / ``load_rife``
 load ArcFace's, the face stack's and the post-passes' files the same way,
+``load_yolox`` / ``load_dwpose`` the DWPose detector's and pose model's,
 in fp32, and ``load_syncnet`` / ``load_s3fd`` / ``load_fid_inception`` /
 ``load_i3d`` / ``load_senet50`` / ``load_lpips`` the six evaluation
 networks' (the names the JAX package's ``convert_*`` functions read).
@@ -298,6 +299,25 @@ def load_face_landmarker(path: str, device):
     from actalker_tpu_torch.models.rtmpose import RTMPoseNet
 
     return _load_net(lambda: RTMPoseNet(face6_config()), load_state_file(path), device)
+
+
+def load_yolox(path: str, device):
+    """``checkpoints/yolox_l.pth`` (Megvii's, its ``model`` entry
+    unwrapped) -> YoloXNet at YOLOX-L (depth and width 1.0; the detector
+    takes 640 x 640)."""
+    from actalker_tpu_torch.models.yolox import YoloXNet
+
+    sd = load_state_file(path)
+    return _load_net(YoloXNet, sd["model"] if "model" in sd else sd, device)
+
+
+def load_dwpose(path: str, device):
+    """``checkpoints/dw-ll_ucoco_384.pth`` (mmpose keys) -> RTMPoseNet at
+    RTMPose-l wholebody (133 keypoints, input 288 x 384: the
+    ``RTMPoseConfig()`` defaults)."""
+    from actalker_tpu_torch.models.rtmpose import RTMPoseNet
+
+    return _load_net(RTMPoseNet, load_state_file(path), device)
 
 
 def load_bfr(path: str, device):

@@ -690,6 +690,39 @@ def convert_scrfd(sd) -> Dict:
     return {"params": dst}
 
 
+# Megvii YOLOX module prefix -> the JAX module's name
+_YOLOX_NAMES = {
+    "backbone.backbone.stem.conv": "stem/conv",
+    **{f"backbone.backbone.dark{d}.{i}": f"dark{d}_{i}"
+       for d, n in ((2, 2), (3, 2), (4, 2), (5, 3)) for i in range(n)},
+    **{f"backbone.{s}": s for s in ("lateral_conv0", "C3_p4", "reduce_conv1",
+                                    "C3_p3", "bu_conv2", "C3_n3", "bu_conv1",
+                                    "C3_n4")},
+    **{f"head.stems.{i}": f"stem{i}" for i in range(3)},
+    **{f"head.{k}_convs.{i}.{j}": f"{k}_conv{i}_{j}"
+       for k in ("cls", "reg") for i in range(3) for j in range(2)},
+}
+
+
+def convert_yolox(sd) -> Dict:
+    """A Megvii YOLOX state dict (the port's ``YoloXNet``, ``yolox_l.pth``)
+    -> the JAX package's YoloXNet params, every BatchNorm (eps 1e-3) folded
+    into its conv; the head's 1x1 prediction convs keep their bias."""
+    dst: Dict = {}
+    for k in sd:
+        if not k.endswith(".conv.weight") or k[:-len("conv.weight")] + "bn.weight" not in sd:
+            continue
+        pref = k[:-len(".conv.weight")]
+        head = max((p for p in _YOLOX_NAMES if pref.startswith(p)), key=len)
+        rest = pref[len(head):].strip(".").split(".")
+        path = _flax_path(_YOLOX_NAMES[head], [p for p in rest if p and p != "conv"], "m")
+        _fold(dst, sd, f"{path}/conv", f"{pref}.conv", f"{pref}.bn", 1e-3)
+    for kind in ("cls_pred", "reg_pred", "obj_pred"):
+        for i in range(3):
+            _conv2(dst, f"{kind}{i}", sd, f"head.{kind}s.{i}")
+    return {"params": dst}
+
+
 def _rtm_head(pref: str) -> str:
     """``backbone.stem.N`` / ``backbone.stageS.I`` -> the JAX module name
     (``stemN``; a stage's first module is its conv, the SPP the second of

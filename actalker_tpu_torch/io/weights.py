@@ -93,39 +93,47 @@ REFERENCE_ARTIFACTS = {"unet": "unet", "adapter_module": "unet",
                        "id_proj_model": "id_proj", "vasa_linear": "vasa_proj"}
 
 
-def adapter_state_dict(unet) -> Dict[str, torch.Tensor]:
+def adapter_state_dict(unet, unet_sd=None) -> Dict[str, torch.Tensor]:
     """The ``adapter_module-*.pth`` dict: every cross-attention's IP rows,
     indexed in ``attn_processors`` order (inverse of
-    ``load_adapter_modules``)."""
+    ``load_adapter_modules``), from the module or from ``unet_sd`` (a whole
+    UNet state dict, the tensor-parallel export's)."""
+    names = {id(m): n for n, m in unet.named_modules()}
     sd = {}
     for idx, attn in enumerate(unet.attn2_modules()):
         for i in range(attn.num_adapters):
             for kv in ("k", "v"):
-                sd[f"{idx}.to_{kv}_ip.{i}.weight"] = getattr(
-                    attn.processor, f"to_{kv}_ip")[i].weight
+                sd[f"{idx}.to_{kv}_ip.{i}.weight"] = (
+                    getattr(attn.processor, f"to_{kv}_ip")[i].weight if unet_sd is None
+                    else unet_sd[f"{names[id(attn)]}.processor.to_{kv}_ip.{i}.weight"])
     return sd
 
 
 @torch.no_grad()
-def reference_state_dicts(modules) -> Dict[str, Dict[str, torch.Tensor]]:
+def reference_state_dicts(modules, state_dicts=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Module dict (unet / pose_guider / audio_proj / id_proj / vasa_proj)
     -> the six reference state dicts as fp32 CPU tensors (the modules'
-    keys are the reference's already)."""
+    keys are the reference's already). ``state_dicts`` (module name ->
+    whole state dict) replaces the modules' own, as under tensor
+    parallelism, where a module holds its rank's slices."""
+    sds = state_dicts or {n: m.state_dict() for n, m in modules.items()}
     out = {}
     for stem, name in REFERENCE_ARTIFACTS.items():
-        sd = (adapter_state_dict(modules[name]) if stem == "adapter_module"
-              else modules[name].state_dict())
+        sd = (adapter_state_dict(modules[name], state_dicts and sds[name])
+              if stem == "adapter_module" else sds[name])
         out[stem] = {k: v.detach().float().cpu().clone() for k, v in sd.items()}
     return out
 
 
-def export_reference_checkpoint(modules, out_dir: str, step: int) -> List[str]:
+def export_reference_checkpoint(modules, out_dir: str, step: int,
+                                state_dicts=None) -> List[str]:
     """Write ``{unet,pose_guider,audio_linear,adapter_module,id_proj_model,
     vasa_linear}-<step>.pth`` (the reference's ``Inference.py:80-142``
-    contract); returns the paths."""
+    contract); returns the paths. ``state_dicts`` as
+    ``reference_state_dicts``."""
     os.makedirs(out_dir, exist_ok=True)
     paths = []
-    for stem, sd in reference_state_dicts(modules).items():
+    for stem, sd in reference_state_dicts(modules, state_dicts).items():
         paths.append(os.path.join(out_dir, f"{stem}-{step}.pth"))
         torch.save(sd, paths[-1])
     return paths

@@ -160,7 +160,12 @@ class _GEGLUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward (reference keys ``net.0.proj`` / ``net.2``), run as
-    one K4 call: bf16 weights, fp32 biases."""
+    one K4 call: bf16 weights, fp32 biases. Under tensor parallelism
+    (``parallel/tensor.py`` sets ``tp``) the call takes this rank's H / tp
+    value and gate columns and proj_out rows, its partial output is
+    all-reduced and the bias added once."""
+
+    tp = None
 
     def __init__(self, dim: int):
         super().__init__()
@@ -170,8 +175,14 @@ class FeedForward(nn.Module):
 
     def forward(self, x):
         p1, p2 = self.net[0].proj, self.net[2]
-        return geglu_mlp(x, p1.weight.to(x.dtype), p1.bias.float(),
-                         p2.weight.to(x.dtype), p2.bias.float())
+        if self.tp is None:
+            return geglu_mlp(x, p1.weight.to(x.dtype), p1.bias.float(),
+                             p2.weight.to(x.dtype), p2.bias.float())
+        from actalker_tpu_torch.parallel.tensor import copy_to, reduce_from
+
+        y = geglu_mlp(copy_to(x, self.tp), p1.weight.to(x.dtype), p1.bias.float(),
+                      p2.weight.to(x.dtype), torch.zeros_like(p2.bias, dtype=torch.float32))
+        return reduce_from(y, self.tp) + p2.bias.to(x.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -46,21 +46,54 @@ def _cast(p, dtype):
 
 class Linear(nn.Linear):
     """``nn.Linear`` whose weights are cast to the input dtype (as
-    ``nn.Dense(dtype=...)`` computes in its dtype)."""
+    ``nn.Dense(dtype=...)`` computes in its dtype). Under tensor
+    parallelism (``parallel/tensor.py`` sets ``tp`` and ``tp_mode``) it
+    holds this rank's slice: "col" / "col_gather" of the output features
+    (the latter all-gathered), "row" of the input features (the partial
+    products all-reduced, then the whole bias)."""
+
+    tp = None
+    tp_mode = None
 
     def forward(self, x):
-        return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+        w, b = _cast(self.weight, x.dtype), _cast(self.bias, x.dtype)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        from actalker_tpu_torch.parallel.tensor import copy_to, gather_last, reduce_from
+
+        if self.tp_mode == "row":
+            y = reduce_from(F.linear(x, w), self.tp)
+            return y if b is None else y + b
+        y = F.linear(copy_to(x, self.tp), w, b)
+        return gather_last(y, self.tp) if self.tp_mode == "col_gather" else y
+
+
+def _conv_tp(conv, x, fn):
+    """``fn(x)`` of a conv with its output channels sharded over tp ranks
+    (``parallel/tensor.py``): the whole input in, every rank's channels
+    all-gathered out (channels last)."""
+    if conv.tp is None:
+        return fn(x)
+    from actalker_tpu_torch.parallel.tensor import copy_to, gather_last
+
+    return gather_last(fn(copy_to(x, conv.tp)), conv.tp)
 
 
 class Conv2d(nn.Conv2d):
     """2-D conv on NHWC input, weights in torch (O, I / groups, kh, kw)
-    layout."""
+    layout; under tensor parallelism, this rank's output channels
+    (``_conv_tp``)."""
 
-    def forward(self, x):
+    tp = None
+
+    def _conv(self, x):
         y = F.conv2d(x.permute(0, 3, 1, 2), _cast(self.weight, x.dtype),
                      _cast(self.bias, x.dtype), self.stride, self.padding,
                      self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        return _conv_tp(self, x, self._conv)
 
 
 class Conv2dNCHW(nn.Conv2d):
@@ -96,15 +129,21 @@ class FrozenBatchNorm(nn.Module):
 
 
 class TemporalConv(nn.Conv3d):
-    """(3, 1, 1) conv over the frame axis of (B, F, H, W, C) video."""
+    """(3, 1, 1) conv over the frame axis of (B, F, H, W, C) video (under
+    tensor parallelism, this rank's output channels)."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, (3, 1, 1), padding=(1, 0, 0))
 
-    def forward(self, x):
+    def _conv(self, x):
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), _cast(self.weight, x.dtype),
                      _cast(self.bias, x.dtype), padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
+
+    def forward(self, x):
+        return _conv_tp(self, x, self._conv)
 
 
 class GroupNorm32(nn.Module):

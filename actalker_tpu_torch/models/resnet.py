@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from actalker_tpu_torch.models.common import (
-    Conv2d, GroupNorm32, Linear, TemporalConv)
+    Conv2d, GroupNorm32, Linear, TemporalConv, _conv_tp)
 from actalker_tpu_torch.models.embeddings import AlphaBlender
 from actalker_tpu_torch.ops.resconv import gn_silu_conv3x3
 
@@ -45,9 +45,16 @@ def resconv_impl() -> str:
 
 def _gn_silu_conv(norm: GroupNorm32, conv: Conv2d, x):
     """One GroupNorm / SiLU / 3x3-conv pair through K8, on the modules'
-    parameters."""
-    return gn_silu_conv3x3(x, norm.weight, norm.bias, norm.groups, norm.eps,
-                           conv.weight, conv.bias)
+    parameters. Under tensor parallelism each rank's K8 applies the whole
+    GroupNorm affine for its output channels alone, so the affine's
+    gradient, like the input's, is summed over the tp ranks."""
+    w, b = norm.weight, norm.bias
+    if conv.tp is not None:
+        from actalker_tpu_torch.parallel.tensor import copy_to
+
+        w, b = copy_to(w, conv.tp), copy_to(b, conv.tp)
+    return _conv_tp(conv, x, lambda t: gn_silu_conv3x3(
+        t, w, b, norm.groups, norm.eps, conv.weight, conv.bias))
 
 
 class ResnetBlock2D(nn.Module):

@@ -154,6 +154,18 @@ class SS2DCondV10(nn.Module):
         self.out_norm = LayerNormF32(d_inner)
         self.out_proj = Linear(d_inner, d_model, bias=False)
 
+    tp = None
+
+    def _whole(self, y):
+        """(B, L, d_inner) -> out_norm -> out_proj; under tensor parallelism
+        (``parallel/tensor.py`` sets ``tp``: this rank holds d_inner / tp
+        channels) the channels are all-gathered first."""
+        if self.tp is not None:
+            from actalker_tpu_torch.parallel.tensor import gather_last
+
+            y = gather_last(y, self.tp)
+        return self.out_proj(self.out_norm(y))
+
     def forward(self, x, id_emb, audio_cond, exp_cond, audio_mask, exp_mask):
         """x (B, L, C) tokens; id_emb (B, 1, d_cond); audio_cond (B, Sa,
         d_cond); exp_cond (B, Se, d_cond); masks (Bm, 1, H, W) or None."""
@@ -169,7 +181,11 @@ class SS2DCondV10(nn.Module):
         if self.no_scan:
             y = sum(getattr(self, f"in_proj{name}")(x)
                     for name, *_ in branches)
-            return self.out_proj(self.out_norm(y))
+            return self._whole(y)
+        if self.tp is not None:       # the fused in_proj reads x below
+            from actalker_tpu_torch.parallel.tensor import copy_to
+
+            x = copy_to(x, self.tp)
 
         id_tok = F.silu(self.id_proj(id_emb)) if self.use_id else None
         nb = len(branches)
@@ -248,8 +264,7 @@ class SS2DCondV10(nn.Module):
         y = sum(outs)
         if poison is not None:
             y = y + poison[None, :, None]
-        y = y.transpose(0, 1)                                   # (b, l, di)
-        return self.out_proj(self.out_norm(y))
+        return self._whole(y.transpose(0, 1))                   # (b, l, di)
 
     def _capacities(self, names: List[str], masks, l: int) -> List[int]:
         """Token slots per branch: L (every token) without a fraction or a
@@ -290,8 +305,12 @@ class SS2DCondV10(nn.Module):
             inact = (~active[:, :, bi]).to(dt)
             for k in range(2):
                 gi = 2 * bi + k
-                slab[:, :, gi * LANES:gi * LANES + rank + 2 * n] = \
-                    F.linear(xz_b, xw[k].to(dt))
+                x_dbl = F.linear(xz_b, xw[k].to(dt))
+                if self.tp is not None:     # a partial sum over d_inner
+                    from actalker_tpu_torch.parallel.tensor import reduce_from
+
+                    x_dbl = reduce_from(x_dbl, self.tp)
+                slab[:, :, gi * LANES:gi * LANES + rank + 2 * n] = x_dbl
                 slab[:, :, gi * LANES + MASK_LANE] = inact
                 dtw[gi, :rank] = dtw_u[k].t().float()
                 dtw[gi, MASK_LANE] = -1e9

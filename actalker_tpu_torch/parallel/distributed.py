@@ -67,6 +67,27 @@ def barrier(group=None) -> None:
         dist.barrier(group)
 
 
+def mesh_groups(dp: int, tp: int):
+    """The (dp, tp) rank layout with tp the fast axis, as the JAX package's
+    ``make_mesh`` reshapes its devices (dp, tp): rank = i_dp * tp + i_tp.
+    Builds every dp and tp subgroup (each rank takes part in every
+    ``new_group`` call) and returns (this rank's dp group, its tp group,
+    i_dp, i_tp)."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp * tp != world:
+        raise ValueError(f"dp {dp} x tp {tp} != world {world}")
+    mine_dp = mine_tp = None
+    for i_tp in range(tp):
+        g = dist.new_group([i_dp * tp + i_tp for i_dp in range(dp)])
+        if rank % tp == i_tp:
+            mine_dp = g
+    for i_dp in range(dp):
+        g = dist.new_group([i_dp * tp + i_tp for i_tp in range(tp)])
+        if rank // tp == i_dp:
+            mine_tp = g
+    return mine_dp, mine_tp, rank // tp, rank % tp
+
+
 def local_batch_slice(global_batch: int, world: Optional[int] = None,
                       rank: Optional[int] = None) -> slice:
     """This rank's rows of a global batch that divides evenly over the

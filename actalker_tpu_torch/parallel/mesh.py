@@ -13,13 +13,30 @@ r-th chunk of every bucket, so its shard is ``ceil(N / world)`` elements
 and a bucket's gradient reaches its owners with one equal-chunk
 reduce-scatter (and the updated parameters return with one all-gather).
 
-Tensor parallelism (the JAX package's ``_TP_RULES`` / ``param_pspec`` /
-``shard_params``) is not ported: the reference has none (SURVEY §2.8), and
-it waits as its own item in ROADMAP queue 1.
+Tensor parallelism (``parallel/tensor.py``) adds a second axis, ``tp``,
+the fast one (rank = i_dp * tp + i_tp, ``distributed.mesh_groups``).
+``TP_RULES`` / ``param_tp_axis`` are the port's copy of the JAX package's
+``_TP_RULES`` / ``param_pspec``, keyed on the port's (the reference's)
+state-dict names and giving the torch tensor's sharded axis: attention
+q / k / v and the IP branches' k / v by output features (heads), their
+output projection by input features; GEGLU's ``net.0.proj`` by output
+features (value and gate halves alike) and ``net.2`` by input features;
+the heads' ``proj1`` / ``proj2`` by output, ``proj3`` by input; the SSM
+block's projections into d_inner by output, its units' parameters over
+d_inner; the ``conv\\d?`` convolutions by output channels. Where the port
+departs from the JAX rules (``tests/test_torch_tp.py`` lists each case):
+it keeps the SSM's ``out_proj`` whole (its LayerNorm needs the whole
+d_inner), shards a temporal conv's output channels where the JAX rule
+names its input channels, cuts a layer's bias and the SSM units'
+per-channel vectors with the layer, and keeps an attention whole when its
+heads do not divide by tp (GSPMD splits a head; the port's kernels take
+whole heads).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -32,9 +49,32 @@ BUCKET_ELEMS = 1 << 25
 # take fp32 operands (biases, norm affines) as they are and need 16-byte
 # alignment; 256 bytes is the caching allocator's own
 ALIGN_BYTES = 256
-TP_UNPORTED = ("tensor parallelism (--tp > 1) is not ported: the reference "
-               "trains data-parallel only (ZeRO-2); see ROADMAP.md queue 1, "
-               "item 9")
+# port state-dict key -> the torch axis tensor parallelism shards (weights;
+# a sharded layer's bias follows its weight's output axis)
+TP_RULES = (
+    (r"(to_q|to_k|to_v|to_k_ip\.\d+|to_v_ip\.\d+)\.weight$", 0),
+    (r"to_out\.0\.weight$", 1),
+    (r"(ff|ff_in)\.net\.0\.proj\.weight$", 0),
+    (r"(ff|ff_in)\.net\.2\.weight$", 1),
+    (r"(^|\.)(proj1|proj2)\.weight$", 0),
+    (r"(^|\.)proj3\.weight$", 1),
+    (r"(in_proj\d|audio_proj|exp_proj|id_proj)\.weight$", 0),
+    (r"x_proj_weight$", 2),
+    (r"dt_projs_weight$", 1),
+    (r"(^|\.)conv\d?\.weight$", 0),
+)
+
+
+def param_tp_axis(key: str, shape, min_size: int = 2 ** 14) -> Optional[int]:
+    """The axis of the torch tensor ``key`` (a trainable module's
+    state-dict key) the port's rules shard over tp, or None (replicated,
+    as for any tensor under ``min_size`` elements)."""
+    if int(math.prod(shape)) < min_size:
+        return None
+    for pat, axis in TP_RULES:
+        if re.search(pat, key) and axis < len(shape):
+            return axis
+    return None
 
 
 def shard_batch(batch, world: Optional[int] = None, rank: Optional[int] = None):
@@ -115,8 +155,17 @@ def per_rank_bytes(numel: int, world: int, itemsize: int = 4) -> Dict[str, int]:
     AdamW moments and the gradient accumulator, each ``ceil(numel /
     world)`` elements. Gradient buckets in flight come on top (at most a
     few of ``BUCKET_ELEMS``)."""
-    shard = -(-numel // world)
-    out = {"masters": world * shard * itemsize, "moments": 2 * shard * itemsize,
+    return per_rank_bytes_tp(0, numel, world, 1, itemsize)
+
+
+def per_rank_bytes_tp(numel_sharded: int, numel_replicated: int, dp: int, tp: int,
+                      itemsize: int = 4) -> Dict[str, int]:
+    """``per_rank_bytes`` on a (dp, tp) layout: a rank holds 1 / tp of the
+    ``numel_sharded`` elements tensor parallelism slices and all of the
+    ``numel_replicated`` others, and ZeRO-2 divides that over dp."""
+    local = numel_sharded // tp + numel_replicated
+    shard = -(-local // dp)
+    out = {"masters": dp * shard * itemsize, "moments": 2 * shard * itemsize,
            "grads": shard * itemsize}
     out["total"] = sum(out.values())
     return out

@@ -29,8 +29,9 @@ from actalker_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporalConditi
 from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
 from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
 from actalker_tpu_torch.models.whisper import WhisperEncoder
-from actalker_tpu_torch.pipeline.sampler import CondBuffers, SamplerConfig, make_plan
-from actalker_tpu_torch.pipeline.serving import sample_video_batch, stack_buffers
+from actalker_tpu_torch.pipeline.sampler import (
+    CondBuffers, SamplerConfig, make_plan, sample_video_batch)
+from actalker_tpu_torch.pipeline.serving import stack_buffers
 
 
 def budget_of(fracs):
@@ -270,7 +271,7 @@ class ACTalkerPipeline:
                          uncond_audio_tokens, vasa_tokens, uncond_vasa_tokens,
                          pose_images, config: SamplerConfig, seed: int = 0,
                          audio_mask=None, exp_mask=None, init_noise=None,
-                         noise_aug=None) -> torch.Tensor:
+                         noise_aug=None, group=None) -> torch.Tensor:
         """ref_image (H, W, 3) in [-1, 1]; id_embed (512,); audio tokens
         (F, 32, 1024); vasa tokens (F, 1, 1024); pose_images (F, H, W, 3) in
         [0, 1]; masks (1, 1, H, W). Returns latents (F, h, w, 4) fp32.
@@ -279,21 +280,25 @@ class ACTalkerPipeline:
         seeded draws of the initial noise and of the reference-image noise
         augmentation (tests feed both packages the same numpy noise). With
         face-box masks in modes 0 / 1 the SSM blocks take their gather path
-        for this call (``_capacity_fracs``)."""
-        prepared = self.prepare_sampling(
+        for this call (``_capacity_fracs``). With a process ``group`` its
+        ranks split each denoise step's windows (``sampler.sample_video``);
+        every rank passes the same inputs and returns the latents."""
+        prepared = [self.prepare_sampling(
             ref_image, id_embed, audio_tokens, uncond_audio_tokens, vasa_tokens,
             uncond_vasa_tokens, pose_images, config, seed, audio_mask,
-            exp_mask, noise_aug)
-        return self.generate_latents_batch(
-            [prepared], config,
-            init_noise=None if init_noise is None else self._t(init_noise)[None])[0]
+            exp_mask, noise_aug)]
+        caps = budget_of(self._mask_fracs_of(config, prepared)) if self.gather else None
+        return self._sample_block(
+            prepared, config,
+            None if init_noise is None else self._t(init_noise)[None], caps,
+            window_group=group)[0]
 
     @torch.no_grad()
     def generate_latents_batch(self, prepared, config: SamplerConfig,
                                init_noise=None, group=None):
         """Several identities' ``prepare_sampling`` outputs (plan, buffers,
         ref_latent, generator), all of one frame count, through one
-        ``serving.sample_video_batch`` loop whose UNet calls stack them.
+        ``sampler.sample_video_batch`` loop whose UNet calls stack them.
         Returns latents (I, F, h, w, 4) fp32; ``init_noise`` (I, buf, h, w,
         4) replaces the generators' initial draws.
 
@@ -327,9 +332,11 @@ class ACTalkerPipeline:
         return self._mask_fracs(config, buffers.audio_mask[:, 0],
                                 buffers.exp_mask[:, 0], prepared[0][2].shape[:2])
 
-    def _sample_block(self, prepared, config: SamplerConfig, init_noise, caps):
+    def _sample_block(self, prepared, config: SamplerConfig, init_noise, caps,
+                      window_group=None):
         """``prepared``'s identities through one sampler loop under the SSM
-        budget ``caps`` (restored after)."""
+        budget ``caps`` (restored after), each step's windows split over
+        ``window_group``'s ranks where it is given."""
         plan = prepared[0][0]
         if any(p[0].num_frames != plan.num_frames for p in prepared):
             raise ValueError("identities of one call need one frame count")
@@ -342,7 +349,7 @@ class ACTalkerPipeline:
             latents = sample_video_batch(
                 unet, config, plan, buffers, refs,
                 generators=[p[3] for p in prepared], dtype=self.dtype,
-                init_noise=init_noise)
+                init_noise=init_noise, window_group=window_group)
         finally:
             unet.set_mask_capacity(saved)
         return latents[:, :plan.num_frames]

@@ -12,6 +12,18 @@ vasa branches.
 The denoise loop is a Python loop over steps. Within a step the windows run
 ``windows_per_call`` at a time (0 = all in one UNet batch; the output is the
 same either way), and the overlap average is an ``index_add_`` plus counts.
+With churn on, each step's noise is drawn for all its windows at once, so
+the chunking does not change it.
+
+``sample_video(..., group=)`` splits each step's windows over the ranks of
+a process group (the JAX sampler's ``window_sharding``: the windows of a
+step read only the previous step's buffer): a rank denoises a contiguous
+block of them (``parallel.distributed.rank_block``, ``windows_per_call`` at
+a time), ``index_add_``s its outputs into a zero fp32 buffer, and one
+all-reduce (sum) gives every rank the step's whole sum; the counts come
+from the plan. Every rank draws the step's churn for all windows from its
+generator and keeps its own rows, so each window gets the noise the single
+process gives it.
 
 One loop serves one identity (``sample_video``) and several
 (``sample_video_batch``, the entry of ``pipeline/serving.py``): every
@@ -177,17 +189,22 @@ def sample_video(unet, cfg: SamplerConfig, plan: SamplerPlan,
                  buffers: CondBuffers, ref_latent: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 init_noise: Optional[torch.Tensor] = None,
+                 group=None) -> torch.Tensor:
     """Runs the denoise loop for one identity; returns latents (buffer_len,
     h, w, 4) fp32.
 
     ``ref_latent``: (h, w, 4) scaled VAE mean. ``init_noise``: optional
     (buffer_len, h, w, 4) initial noise replacing the draw from
-    ``generator`` (tests feed both packages the same numpy noise)."""
+    ``generator`` (tests feed both packages the same numpy noise).
+    ``group``: a process group whose ranks split each step's windows
+    (module docstring); every rank passes the same inputs and a generator
+    in the same state, and every rank returns the latents."""
     return sample_video_batch(
         unet, cfg, plan, _identity_axis(buffers), ref_latent[None],
         generators=[generator], dtype=dtype,
-        init_noise=None if init_noise is None else init_noise[None])[0]
+        init_noise=None if init_noise is None else init_noise[None],
+        window_group=group)[0]
 
 
 @torch.no_grad()
@@ -195,7 +212,8 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
                        buffers: CondBuffers, ref_latents: torch.Tensor,
                        generators: Optional[Sequence[Optional[torch.Generator]]] = None,
                        dtype: torch.dtype = torch.bfloat16,
-                       init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       init_noise: Optional[torch.Tensor] = None,
+                       window_group=None) -> torch.Tensor:
     """Runs the denoise loop for I identities in one loop whose UNet calls
     stack them; returns latents (I, buffer_len, h, w, 4) fp32.
 
@@ -203,7 +221,8 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
     (I, 1, 1, H, W)); ``ref_latents``: (I, h, w, 4). Identity i draws its
     initial noise (unless ``init_noise`` (I, buffer_len, h, w, 4) gives it)
     and its churn from ``generators[i]``, so it equals ``sample_video`` on
-    its own buffers and generator."""
+    its own buffers and generator. ``window_group``: the process group
+    that splits each step's windows (``sample_video``'s ``group``)."""
     dev = ref_latents.device
     fpb, buf = cfg.frames_per_batch, plan.buffer_len
     n_id, h, w, _ = ref_latents.shape
@@ -218,7 +237,14 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
     latents = sch.add_noise(ref_latents.float()[:, None].expand(n_id, buf, h, w, 4),
                             noise, float(plan.sigmas[0]))
     n_win = plan.window_idx.shape[1]
-    per_call = cfg.windows_per_call or n_win
+    mine = range(n_win)
+    if window_group is not None:
+        from actalker_tpu_torch.parallel import distributed as P
+
+        block = P.rank_block(n_win, P.world_size(window_group),
+                             P.get_rank(window_group))
+        mine = range(block.start, block.stop)
+    per_call = cfg.windows_per_call or max(len(mine), 1)
     tids = torch.tensor([cfg.fps, cfg.motion_bucket_id,
                          cfg.motion_bucket_id_exp], dtype=dtype, device=dev)
 
@@ -229,9 +255,14 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
         gamma = float(plan.gammas[i])
         t_cont = torch.tensor(float(plan.timesteps[i]), dtype=dtype, device=dev)
         w_idx = torch.as_tensor(plan.window_idx[i], device=dev)
-        outs = []
-        for w0 in range(0, n_win, per_call):
-            idx = w_idx[w0:w0 + per_call]                   # (nw, fpb)
+        churn_all = None
+        if gamma > 0:            # the step's churn for every window
+            churn_all = torch.stack([_churn_noise(cfg, (n_win, fpb, h, w, 4), g, dev)
+                                     for g in gens])
+        summed = torch.zeros_like(latents)
+        for w0 in range(mine.start, mine.stop, per_call):
+            w1 = min(w0 + per_call, mine.stop)
+            idx = w_idx[w0:w1]                              # (nw, fpb)
             nw = idx.shape[0]
             lat = latents[:, idx]                           # (I, nw, fpb, h, w, 4)
             scaled = sch.scale_model_input(lat, sigma).to(dtype)
@@ -247,16 +278,13 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
             pred = pred.float().reshape(n_id, nw, 4, fpb, h, w, 4)
             u, a, b, c = pred.unbind(dim=2)
             noise_pred = u + g1 * (a - u) + g2 * (b - a) + g3 * (c - b)
-            churn = None
-            if gamma > 0:
-                churn = torch.stack([_churn_noise(cfg, lat.shape[1:], g, dev)
-                                     for g in gens])
-            outs.append(sch.step(lat, noise_pred, sigma, sigma_next,
-                                 cfg.scheduler.prediction_type, gamma=gamma,
-                                 noise=churn, s_noise=cfg.s_noise))
-        outs = torch.cat(outs, dim=1).reshape(n_id, n_win * fpb, h, w, 4)
-        flat = w_idx.reshape(-1)
-        summed = torch.zeros_like(latents).index_add_(1, flat, outs)
-        counts = torch.bincount(flat, minlength=buf).to(summed.dtype)
+            out = sch.step(lat, noise_pred, sigma, sigma_next,
+                           cfg.scheduler.prediction_type, gamma=gamma,
+                           noise=None if churn_all is None else churn_all[:, w0:w1],
+                           s_noise=cfg.s_noise)
+            summed.index_add_(1, idx.reshape(-1), out.reshape(n_id, nw * fpb, h, w, 4))
+        if window_group is not None:
+            torch.distributed.all_reduce(summed, group=window_group)
+        counts = torch.bincount(w_idx.reshape(-1), minlength=buf).to(summed.dtype)
         latents = summed / counts[:, None, None, None]
     return latents

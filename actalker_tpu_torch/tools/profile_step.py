@@ -38,6 +38,8 @@ import time
 
 import torch
 
+from actalker_tpu_torch.utils.observability import device_trace
+
 # (group, name substrings), first match wins: the port's own kernels first
 GROUPS = (
     ("K1 grouped scan", ("ssm_grouped_kernel",)),
@@ -100,28 +102,25 @@ def device_times(trace_path: str):
 
 
 class Window:
-    """A profiled window: ``start()`` / ``stop()`` on a synchronized card.
-    ``stop()`` reads the window's device time at once (``busy``, ``groups``)
-    through a chrome trace in ``tmp``: a later profiler session in the
-    process leaves an earlier one's kernels without device timestamps."""
+    """A profiled window: ``start()`` / ``stop()`` on a synchronized card,
+    through ``utils.observability.device_trace`` into ``tmp``. ``stop()``
+    reads the window's device time at once (``busy``, ``groups``) from the
+    chrome trace: a later profiler session in the process leaves an
+    earlier one's kernels without device timestamps."""
 
     def __init__(self, tmp: str):
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        self.prof = torch.profiler.profile(activities=acts)
-        self.trace = os.path.join(tmp, "trace.json")
+        self.tmp = tmp
 
     def start(self):
-        torch.cuda.synchronize()
-        self.prof.__enter__()
+        self.trace = device_trace(self.tmp, torch.device("cuda"))
+        self.prof = self.trace.__enter__()
         self.t0 = time.perf_counter()
 
     def stop(self):
         torch.cuda.synchronize()
         self.wall = time.perf_counter() - self.t0
-        self.prof.__exit__(None, None, None)
-        self.prof.export_chrome_trace(self.trace)
-        self.busy, self.groups, self.launches = device_times(self.trace)
+        self.trace.__exit__(None, None, None)
+        self.busy, self.groups, self.launches = device_times(self.prof.trace_path)
 
 
 def profile_train(tmp: str) -> Window:

@@ -11,12 +11,13 @@ towers' inputs), the ``audio_features`` log-mel (80, <= 3000) of the clip's
 30-second window with the window-local ``audio_offset`` and the clip's
 ``audio_step``, and the mask / bucket scalars.
 
-The batch carries the trainable heads' inputs (whisper windows, the ArcFace
+With ``raw_heads`` (what ``train.py`` passes, as the JAX package's does) the
+batch carries the trainable heads' inputs (whisper windows, the ArcFace
 embedding, the VASA expression and rotation, the pose pixels), and the
-train step runs the heads (the JAX builder's ``raw_heads=True``, which its
-``train.py`` always passes). Its pre-encoded mode, where the builder
-projects the conditioning and the step trains the UNet alone, has no
-caller and is not ported.
+train step runs the heads. Without it (the JAX builder's default) the
+builder runs the pipeline's heads as well and the batch carries their
+outputs: id tokens, per-frame audio and VASA tokens, pose features over
+every frame; a step over ``{"unet": unet}`` then trains the UNet alone.
 """
 from __future__ import annotations
 
@@ -35,11 +36,12 @@ log = get_logger("batch_builder")
 class BatchBuilder:
     def __init__(self, pipe, fps: float = 12.5,
                  arcface: Optional[torch.nn.Module] = None,
-                 encode_chunk: int = 16):
+                 encode_chunk: int = 16, raw_heads: bool = True):
         """``pipe``: an ``ACTalkerPipeline`` whose heads are the trainer's own
         modules. ``arcface``: an optional module mapping (B, 112, 112, 3) in
         [-1, 1] to (B, 512); without it identity conditioning is a zero
         embedding, said once.
+        ``raw_heads``: the batch's contract (module docstring).
         ``encode_chunk``: at most this many frames per VAE call (a global
         batch of frames in one encode holds multi-GiB activations).
         ``seconds`` holds the last call's time, the device synchronized."""
@@ -47,6 +49,7 @@ class BatchBuilder:
         self.fps = fps
         self.arcface = arcface
         self.encode_chunk = encode_chunk
+        self.raw_heads = raw_heads
         self.device = pipe.device
         self.seconds = 0.0
         self._warned: set = set()
@@ -126,6 +129,23 @@ class BatchBuilder:
             "conditioning is zero")
         return np.zeros((f, 512), np.float32), np.zeros((f, 3), np.float32)
 
+    def _audio_tokens(self, s: Dict[str, Any], f: int) -> torch.Tensor:
+        """(f, 32, 1024) projected audio tokens of one sample."""
+        windows = self._audio_windows(s, f)
+        if windows is None:
+            self._warn_once("audio", "samples carry no audio_features mel: "
+                            "audio conditioning is zero")
+            return torch.zeros(f, 32, 1024, device=self.device)
+        return self.pipe.m.audio_proj(self._t(windows)[None])[0].float()
+
+    def _vasa_tokens(self, s: Dict[str, Any], f: int) -> torch.Tensor:
+        """(f, 1, 1024) VASA tokens of one sample: [proj(expr), rot, 0]."""
+        if self._has_vasa(s):
+            return self.pipe.vasa_tokens(*self._vasa_raw(s, f), f)[0].float()
+        self._warn_once("vasa", "no VASA towers / driving crops: expression "
+                        "conditioning is zero")
+        return torch.zeros(f, 1, 1024, device=self.device)
+
     def _encode_chunked(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) -> latent means (N, h, w, 4) fp32, at most
         ``encode_chunk`` frames per VAE call; the last call is padded with
@@ -153,9 +173,25 @@ class BatchBuilder:
         pose_imgs = self._t(np.stack([
             np.repeat(s["pose_mask"][..., None], 3, axis=-1) for s in samples]))
 
-        zeros_w = np.zeros((f, 10, 5, 384), np.float32)
-        windows = [self._audio_windows(s, f) for s in samples]
-        vr = [self._vasa_raw(s, f) for s in samples]
+        if self.raw_heads:
+            zeros_w = np.zeros((f, 10, 5, 384), np.float32)
+            windows = [self._audio_windows(s, f) for s in samples]
+            vr = [self._vasa_raw(s, f) for s in samples]
+            fields = dict(
+                audio_feats=self._t(np.stack([zeros_w if w is None else w
+                                              for w in windows])),
+                id_embed=self._id_embeds(samples),
+                vasa_expr=self._t(np.stack([e for e, _ in vr])),
+                vasa_rot=self._t(np.stack([r for _, r in vr])),
+                pose_pixels=pose_imgs)
+        else:
+            m = self.pipe.m
+            fields = dict(
+                id_tokens=m.id_proj(self._id_embeds(samples))[:, None, :].float(),
+                audio_tokens=torch.stack([self._audio_tokens(s, f) for s in samples]),
+                vasa_tokens=torch.stack([self._vasa_tokens(s, f) for s in samples]),
+                pose_fea=m.pose_guider(pose_imgs[:, None].expand(
+                    b, f, *pose_imgs.shape[1:])).float())
 
         # per-sample region masks (B, 1, H, W): the reference dataset emits
         # one mouth / exp mask per sample (its dataset :725-735)
@@ -166,11 +202,7 @@ class BatchBuilder:
             motion_buckets=self._t(np.array(
                 [[s["motion_bucket"], s["motion_bucket_exp"]] for s in samples])),
             fps=self._t(np.array([float(s.get("fps", self.fps)) for s in samples])),
-            audio_feats=self._t(np.stack([zeros_w if w is None else w for w in windows])),
-            id_embed=self._id_embeds(samples),
-            vasa_expr=self._t(np.stack([e for e, _ in vr])),
-            vasa_rot=self._t(np.stack([r for _, r in vr])),
-            pose_pixels=pose_imgs)
+            **fields)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.seconds = time.perf_counter() - t0

@@ -9,7 +9,7 @@ optional export of the six reference ``.pth`` files.
     python -m actalker_tpu_torch.training.train --config configs/train.yaml \
         (--metadata clips.json ... | --synthetic 8) [--steps 8] \
         [--output train_output] [--micro-model] [--export-reference DIR] \
-        [--device cuda|cpu] [--dp N]
+        [--device cuda|cpu] [--dp N] [--tp M]
 
     torchrun --nproc_per_node N -m actalker_tpu_torch.training.train ...
 
@@ -20,8 +20,14 @@ torchrun (or any launcher that sets ``RANK`` / ``WORLD_SIZE`` /
 (``trainer.ShardedOptimizer``; NCCL, gloo for ``--device cpu``):
 ``data.train_bs`` is the global batch, each rank loads and steps its own
 rows, the logged loss is the global mean, and rank 0 alone writes the
-metrics, the checkpoints and the export. ``--dp`` must equal the world
-size when given; ``--tp`` above 1 is refused (not ported). With
+metrics, the checkpoints and the export. ``--tp M`` adds tensor
+parallelism (``parallel/tensor.py``): the ranks form a (dp, tp) layout
+with tp the fast axis (rank = i_dp * M + i_tp), each tp group holds one
+model in slices and takes one dp block of the batch (the same rows, the
+same draws), ZeRO-2 runs over each dp group, and the checkpoints and the
+export gather the slices, so they are the one-card files; ``dp * tp``
+must equal the world size (``--dp`` defaults to world / tp) and tp must
+divide every UNet width. With
 ``--metadata`` the config's ``data.num_workers`` is the number of loader
 worker processes (0: synchronous); clips are decoded by
 ``frontend/video.read_frames`` unless ``main`` is handed another
@@ -53,7 +59,7 @@ from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfi
 from actalker_tpu_torch.models.vasa import HeadExpression, HeadPose
 from actalker_tpu_torch.models.whisper import WhisperEncoder
 from actalker_tpu_torch.parallel import distributed as P
-from actalker_tpu_torch.parallel.mesh import TP_UNPORTED
+from actalker_tpu_torch.parallel.tensor import TPGroup, shard_modules_, tp_width_error
 from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline, PipelineModules
 from actalker_tpu_torch.training import data as D
 from actalker_tpu_torch.training.batch_builder import BatchBuilder
@@ -68,10 +74,12 @@ TRAINABLE = ("unet", "pose_guider", "audio_proj", "id_proj", "vasa_proj")
 
 
 def synthetic_batches(batch_size: int, frames: int, latent_hw: int,
-                      seed: int = 0, device="cpu") -> Iterator[TrainBatch]:
-    """The JAX driver's generated raw-head batches (its default), drawn from
-    numpy in the same order, so one seed gives both packages the same
-    data."""
+                      seed: int = 0, device="cpu", raw_heads: bool = True,
+                      c0: int = 320) -> Iterator[TrainBatch]:
+    """The JAX ``train.py``'s generated batches, drawn from numpy in the same
+    order, so one seed gives both packages the same data: raw-head (its
+    default) or, with ``raw_heads=False``, pre-encoded tokens (d 1024) and
+    pose features of ``c0`` channels."""
     rng = np.random.default_rng(seed)
     hw = latent_hw
     px = hw * 8
@@ -80,11 +88,17 @@ def synthetic_batches(batch_size: int, frames: int, latent_hw: int,
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
 
     while True:
-        fields = dict(audio_feats=g(batch_size, frames, 10, 5, 384),
-                      id_embed=g(batch_size, 512),
-                      vasa_expr=g(batch_size, frames, 512),
-                      vasa_rot=g(batch_size, frames, 3),
-                      pose_pixels=g(batch_size, px, px, 3))
+        if raw_heads:
+            fields = dict(audio_feats=g(batch_size, frames, 10, 5, 384),
+                          id_embed=g(batch_size, 512),
+                          vasa_expr=g(batch_size, frames, 512),
+                          vasa_rot=g(batch_size, frames, 3),
+                          pose_pixels=g(batch_size, px, px, 3))
+        else:
+            fields = dict(id_tokens=g(batch_size, 1, 1024),
+                          audio_tokens=g(batch_size, frames, 32, 1024),
+                          vasa_tokens=g(batch_size, frames, 1, 1024),
+                          pose_fea=g(batch_size, frames, hw, hw, c0))
         ones = torch.ones((batch_size, 1, px, px), device=device)
         yield TrainBatch(
             latents=g(batch_size, frames, hw, hw, 4),
@@ -198,15 +212,13 @@ def main(argv=None, observe: Optional[Callable] = None,
                              "contract .pth artifacts to this directory")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dp", type=int, default=None,
-                        help="data-parallel ranks; must equal WORLD_SIZE")
+                        help="data-parallel ranks (default WORLD_SIZE / tp)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor parallelism: not ported (1 only)")
+                        help="tensor-parallel ranks; dp x tp must equal WORLD_SIZE")
     args = parser.parse_args(argv)
     if not (args.synthetic or args.metadata):
         raise SystemExit("provide --metadata clip JSONs (real data) or "
                          "--synthetic N (generated batches)")
-    if args.tp > 1:
-        raise SystemExit(TP_UNPORTED)
     clips = None if args.synthetic else D.load_metadata(args.metadata)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -224,13 +236,28 @@ def main(argv=None, observe: Optional[Callable] = None,
 
 def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
     world, rank = P.world_size(), P.get_rank()
-    if args.dp is not None and args.dp != world:
-        raise SystemExit(f"--dp {args.dp} != the {world} ranks launched "
+    cfg = read_config(args.config)
+    ucfg = UNetConfig(ablate=tuple(cfg.get("ablate") or ()),
+                      gradient_checkpointing=bool(
+                          (cfg.get("solver") or {}).get("gradient_checkpointing", False)))
+    if args.micro_model:
+        ucfg = ucfg.micro()
+    tp = args.tp
+    if tp < 1:
+        raise SystemExit(f"--tp {tp}: at least 1")
+    if tp_width_error(ucfg.block_out_channels, tp):
+        raise SystemExit(tp_width_error(ucfg.block_out_channels, tp))
+    dp = world // tp if args.dp is None else args.dp
+    if dp * tp != world:
+        raise SystemExit(f"--dp {dp} x --tp {tp} != the {world} ranks launched "
                          "(WORLD_SIZE)")
+    dp_group = tp_group = None
+    i_dp = rank
+    if tp > 1:
+        dp_group, tp_group, i_dp, i_tp = P.mesh_groups(dp, tp)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
 
-    cfg = read_config(args.config)
     solver = cfg.get("solver") or {}
     data_cfg = cfg.get("data") or {}
     tcfg = TrainConfig(
@@ -247,17 +274,13 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
     # train_bs is the GLOBAL batch (the reference's per-card batch x cards)
     batch_size = int(data_cfg.get("train_bs", 1))
     image_size = int(data_cfg.get("image_size", 512))
-    ucfg = UNetConfig(ablate=tuple(cfg.get("ablate") or ()),
-                      gradient_checkpointing=bool(
-                          solver.get("gradient_checkpointing", False)))
     if args.micro_model:
-        ucfg = ucfg.micro()
         image_size, frames = 64, min(frames, 2)
-        batch_size = max(batch_size, world)
-    if batch_size % world:
+        batch_size = max(batch_size, dp)
+    if batch_size % dp:
         raise SystemExit(f"train_bs ({batch_size}) must divide evenly over "
-                         f"{world} ranks")
-    local_bs = batch_size // world
+                         f"{dp} data-parallel ranks")
+    local_bs = batch_size // dp
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     latent_hw = image_size // 8
 
@@ -267,7 +290,13 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
         print(f"[train] init: {'reference ' + str(loaded) if loaded else 'random'}"
               f" | UNet {sum(p.numel() for p in mods['unet'].parameters())} params"
               f" | {image_size} px x {frames} frames, batch {batch_size}"
-              f" over {world} rank(s)", flush=True)
+              f" over {world} rank(s) (dp {dp} x tp {tp})", flush=True)
+    plan = None
+    if tp > 1:
+        # the micro model's layers all fall below the flagship threshold;
+        # it shards them as the JAX package's tests do (min_size 128)
+        plan = shard_modules_(mods, TPGroup(tp_group, tp, i_tp),
+                              min_size=128 if args.micro_model else 2 ** 14)
 
     out_dir = args.output
     if rank == 0:
@@ -280,23 +309,26 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
     if last is not None:
         state = ckpt.restore_checkpoint(out_dir, last)
         for name, m in mods.items():
-            m.load_state_dict(state["params"][name], strict=True)
+            sd = state["params"][name]
+            m.load_state_dict(sd if plan is None else plan.cut(name, sd), strict=True)
         if use_ema and "ema" in state:
-            ema = {n: {k: v.to(device) for k, v in sd.items()}
+            ema = {n: {k: v.to(device) for k, v in
+                       (sd if plan is None else plan.cut(n, sd)).items()}
                    for n, sd in state["ema"].items()}
         start_step = last
         print(f"[train] resuming from checkpoint-{last}", flush=True)
     if use_ema and ema is None:
         ema = ema_init(mods)
 
-    trainer = Trainer(mods, tcfg, dtype, sharded=sharded)
+    trainer = Trainer(mods, tcfg, dtype, sharded=sharded, group=dp_group, tp_plan=plan)
     max_steps = args.steps or int(solver.get("max_train_steps", 250000))
     ckpt_every = int(cfg.get("checkpointing_steps", 2000))
     total_limit = int(cfg.get("total_limit", 3))
     builder = None
     if args.synthetic:
-        # each rank its own stream (the JAX trainer seeds with the process)
-        batches = synthetic_batches(local_bs, frames, latent_hw, seed=rank,
+        # each dp block its own stream (the JAX trainer seeds with the
+        # process); the tp ranks of a block see the same rows
+        batches = synthetic_batches(local_bs, frames, latent_hw, seed=i_dp,
                                     device=device)
         n_steps = args.synthetic
     else:
@@ -307,16 +339,22 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
             arc, device) if arc and os.path.exists(arc) else None)
         batches = real_batches(builder, clips, local_bs, frames, image_size,
                                num_workers=int(data_cfg.get("num_workers", 4)),
-                               start=rank * local_bs, stride=batch_size,
+                               start=i_dp * local_bs, stride=batch_size,
                                frame_reader=frame_reader)
         n_steps = max_steps - start_step
     gen = torch.Generator(device=device).manual_seed(0)
 
+    def whole(name, sd):
+        """The one-card dict of a module's (or its EMA's) entries: under
+        tensor parallelism a collective every rank takes part in."""
+        return sd if plan is None else plan.gather(name, sd)
+
     def state():
-        s = {"params": {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        s = {"params": {n: {k: v.detach().cpu() for k, v in
+                            whole(n, m.state_dict()).items()}
                         for n, m in mods.items()}}
         if ema is not None:
-            s["ema"] = {n: {k: v.cpu() for k, v in sd.items()}
+            s["ema"] = {n: {k: v.cpu() for k, v in whole(n, sd).items()}
                         for n, sd in ema.items()}
         return s
 
@@ -330,8 +368,9 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
 
     def save(step):
         P.barrier()        # no rank still reads a checkpoint rotation removes
+        s = state() if rank == 0 or plan is not None else None
         if rank == 0:
-            ckpt.save_checkpoint(out_dir, step, state(), total_limit)
+            ckpt.save_checkpoint(out_dir, step, s, total_limit)
     try:
         for step in range(start_step, min(start_step + n_steps, max_steps)):
             t_batch = time.perf_counter()
@@ -363,12 +402,15 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
         emitter.close()
     save(final_step)
     exported = []
-    if args.export_reference and rank == 0:
-        exported = W.export_reference_checkpoint(mods, args.export_reference,
-                                                 final_step)
+    if args.export_reference:
+        sds = None if plan is None else {n: whole(n, m.state_dict())
+                                         for n, m in mods.items()}
+        if rank == 0:
+            exported = W.export_reference_checkpoint(
+                mods, args.export_reference, final_step, state_dicts=sds)
     return {"records": records, "final_step": final_step,
             "start_step": start_step, "output": out_dir, "exported": exported,
-            "modules": mods}
+            "modules": mods, "tp_plan": plan}
 
 
 if __name__ == "__main__":

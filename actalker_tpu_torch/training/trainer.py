@@ -7,10 +7,11 @@ heads. Twin of ``actalker_tpu/training/trainer.py``:
     loss = lambda(sigma) * ||D(x) - x0||^2,  lambda = (1 + sigma^2) / sigma^2
 
 with c_skip = 1/(1+sigma^2), c_out = -sigma/sqrt(1+sigma^2), c_in =
-1/sqrt(1+sigma^2), per-sample conditioning dropout and raw-head batches
+1/sqrt(1+sigma^2) and per-sample conditioning dropout. A batch is raw-head
 (the heads run inside the differentiable step, so all five trainable
-artifacts get gradients). The JAX package's pre-encoded batches (UNet-only
-training on ``--metadata`` tokens) are not ported.
+artifacts get gradients) or pre-encoded (projected tokens and pose
+features; a trainer over ``{"unet": unet}`` alone then trains the UNet,
+as the JAX package's ``make_train_step`` on a bare UNet apply does).
 
 The optimizer is ``optax.MultiSteps(chain(clip_by_global_norm, adamw), k)``
 written out: gradients of k micro-steps are summed in ``.grad`` and their
@@ -50,21 +51,31 @@ class TrainConfig:
 
 
 class TrainBatch(NamedTuple):
-    """One raw-head batch in the JAX package's layouts (channels last): the
-    conditioning fields are the inputs of the trainable heads, which run
-    inside the differentiable step."""
+    """One batch in the JAX package's layouts (channels last), with either
+    conditioning contract per field:
+      * raw (``audio_feats``, ``id_embed``, ``vasa_expr`` + ``vasa_rot``,
+        ``pose_pixels``): the inputs of the trainable heads, which run
+        inside the differentiable step;
+      * pre-encoded (``audio_tokens``, ``id_tokens``, ``vasa_tokens``,
+        ``pose_fea``): the heads' outputs, made by the batch builder
+        (``BatchBuilder(raw_heads=False)``); only the UNet sees them.
+    A raw field that is set takes precedence over its pre-encoded twin."""
 
     latents: torch.Tensor        # (B, F, h, w, 4) clean video latents
     ref_latents: torch.Tensor    # (B, h, w, 4) reference latent
-    audio_feats: torch.Tensor    # (B, F, 10, 5, 384)
-    id_embed: torch.Tensor       # (B, 512)
-    vasa_expr: torch.Tensor      # (B, F, 512)
-    vasa_rot: torch.Tensor       # (B, F, 3)
-    pose_pixels: torch.Tensor    # (B[, F], H, W, 3)
     motion_buckets: torch.Tensor  # (B, 2)
     fps: torch.Tensor            # (B,)
     audio_mask: Optional[torch.Tensor] = None    # (B, 1, H, W)
     exp_mask: Optional[torch.Tensor] = None      # (B, 1, H, W)
+    audio_feats: Optional[torch.Tensor] = None   # (B, F, 10, 5, 384)
+    id_embed: Optional[torch.Tensor] = None      # (B, 512)
+    vasa_expr: Optional[torch.Tensor] = None     # (B, F, 512)
+    vasa_rot: Optional[torch.Tensor] = None      # (B, F, 3)
+    pose_pixels: Optional[torch.Tensor] = None   # (B[, F], H, W, 3)
+    id_tokens: Optional[torch.Tensor] = None     # (B, 1, d)
+    audio_tokens: Optional[torch.Tensor] = None  # (B, F, 32, d)
+    vasa_tokens: Optional[torch.Tensor] = None   # (B, F, 1, d)
+    pose_fea: Optional[torch.Tensor] = None      # (B, F, h, w, c0)
 
 
 class LossDraws(NamedTuple):
@@ -105,20 +116,32 @@ def acc_dtype(dtype) -> torch.dtype:
 
 def head_tokens(modules: Dict[str, nn.Module], batch: TrainBatch,
                 keep: torch.Tensor, dtype=torch.bfloat16):
-    """Run the trainable heads inside the differentiable graph. ``keep`` (B,)
-    is 1.0 / 0.0; a dropped sample's raw inputs are zeroed before the
-    projection, so it equals the inference pipeline's unconditional
-    branch. Returns (id (B,1,d), audio (B,F,32,d), vasa (B,F,1,d),
-    pose_fea (B,F,h,w,c0))."""
+    """The conditioning of the step. ``keep`` (B,) is 1.0 / 0.0. A raw field
+    runs its trainable head inside the differentiable graph, a dropped
+    sample's inputs zeroed before the projection (so it equals the
+    inference pipeline's unconditional branch); a pre-encoded field's
+    tokens are zeroed instead, and ``pose_fea`` passes as it is. Returns
+    (id (B,1,d), audio (B,F,32,d), vasa (B,F,1,d), pose_fea (B,F,h,w,c0))."""
     b, f = batch.latents.shape[:2]
-    audio = modules["audio_proj"](
-        (batch.audio_feats * keep[:, None, None, None, None]).to(acc_dtype(dtype)))
-    idt = modules["id_proj"](batch.id_embed * keep[:, None])[:, None, :]
-    proj = modules["vasa_proj"](batch.vasa_expr * keep[:, None, None])
-    rot = batch.vasa_rot * keep[:, None, None]
-    # rotation + translation * 0 (reference Inference.py:498-505)
-    pose6 = torch.cat([rot, torch.zeros_like(rot)], dim=-1)
-    vasa = torch.cat([proj, pose6], dim=-1)[:, :, None, :]
+    if batch.audio_feats is not None:
+        audio = modules["audio_proj"](
+            (batch.audio_feats * keep[:, None, None, None, None]).to(acc_dtype(dtype)))
+    else:
+        audio = batch.audio_tokens * keep[:, None, None, None]
+    if batch.id_embed is not None:
+        idt = modules["id_proj"](batch.id_embed * keep[:, None])[:, None, :]
+    else:
+        idt = batch.id_tokens * keep[:, None, None]
+    if batch.vasa_expr is not None:
+        proj = modules["vasa_proj"](batch.vasa_expr * keep[:, None, None])
+        rot = batch.vasa_rot * keep[:, None, None]
+        # rotation + translation * 0 (reference Inference.py:498-505)
+        pose6 = torch.cat([rot, torch.zeros_like(rot)], dim=-1)
+        vasa = torch.cat([proj, pose6], dim=-1)[:, :, None, :]
+    else:
+        vasa = batch.vasa_tokens * keep[:, None, None, None]
+    if batch.pose_pixels is None:
+        return idt, audio, vasa, batch.pose_fea
     px = batch.pose_pixels
     if px.ndim == 4:     # one static pose image for every frame
         px = px[:, None].expand(b, f, *px.shape[1:])
@@ -230,15 +253,24 @@ class ShardedOptimizer:
     commit: divide by k, take the global norm from an all-reduce of the
     shards' squared norms, clip as optax does, run AdamW (decoupled decay)
     on the shard with moments of ``ceil(N / world)`` elements, then
-    all-gather the updated parameters bucket by bucket."""
+    all-gather the updated parameters bucket by bucket.
 
-    def __init__(self, params, cfg: TrainConfig):
+    Under tensor parallelism ``group`` is this rank's data-parallel group
+    (the ranks holding the same slices) and ZeRO-2 runs over it; the
+    parameters are this rank's (``parallel/tensor.py``), those in
+    ``tp_sharded`` slices of a whole one. The global norm then counts each
+    slice once (its squares summed over ``tp_group``) and each whole
+    parameter once (the same on every tp rank)."""
+
+    def __init__(self, params, cfg: TrainConfig, group=None, tp_group=None,
+                 tp_sharded=()):
         self.params = [p for p in params if p.requires_grad]
         self.k = max(1, cfg.grad_accum_steps)
         self.max_norm = cfg.max_grad_norm
         self.cfg = cfg
         self.mini_step = self.step_count = 0
-        self.world, self.rank = dist.get_world_size(), dist.get_rank()
+        self.group, self.tp_group = group, tp_group
+        self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
         # the backward reaches the last-registered parameters first
         order = self.params[::-1]
         dtype, dev = self.params[0].dtype, self.params[0].device
@@ -256,6 +288,16 @@ class ShardedOptimizer:
                 p.data = self.flat[off:off + n].view_as(p)
                 self._where[id(p)] = (off, n)
         shard = self.layout.shard_numel
+        # 1 where the flat element belongs to a tp slice, in this rank's shard
+        mask = torch.zeros(self.layout.padded, dtype=dtype, device=dev)
+        sliced = {id(p) for p in tp_sharded}
+        for p in order:
+            if id(p) in sliced:
+                off, n = self._where[id(p)]
+                mask[off:off + n] = 1.0
+        self.tp_mask = torch.cat([mask[b.start + self.rank * b.chunk:
+                                       b.start + (self.rank + 1) * b.chunk]
+                                  for b in self.layout.buckets]) if sliced else None
         self.grad = torch.zeros(shard, dtype=dtype, device=dev)
         self.exp_avg = torch.zeros(shard, dtype=dtype, device=dev)
         self.exp_avg_sq = torch.zeros(shard, dtype=dtype, device=dev)
@@ -299,7 +341,7 @@ class ShardedOptimizer:
         """Reduce-scatter bucket ``j`` into the accumulator shard."""
         b = self.layout.buckets[j]
         out = self.flat.new_empty(b.chunk)
-        dist.reduce_scatter_tensor(out, self._stage(j))
+        dist.reduce_scatter_tensor(out, self._stage(j), group=self.group)
         del self._staged[j]
         self._own(self.grad, b).add_(out, alpha=1.0 / self.world)
         self._sent.append(j)
@@ -314,7 +356,7 @@ class ShardedOptimizer:
         for j in self._sent:
             sig = (sig * 1000003 + j + 1) % (2 ** 31 - 1)
         t = torch.tensor([sig, -sig], dtype=torch.float64, device=self.flat.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         if t[0].item() != -t[1].item():
             raise RuntimeError("ranks reduced their gradient buckets in "
                                "different orders")
@@ -331,8 +373,16 @@ class ShardedOptimizer:
         g = self.grad
         if self.k > 1:
             g.div_(float(self.k))
-        sq = torch.linalg.vector_norm(g).square().reshape(1)
-        dist.all_reduce(sq)
+        if self.tp_mask is None:
+            sq = torch.linalg.vector_norm(g).square().reshape(1)
+            dist.all_reduce(sq, group=self.group)
+        else:       # [slices, whole parameters], the slices over tp too
+            g2 = g.square()
+            sliced = (g2 * self.tp_mask).sum()
+            sq = torch.stack([sliced, g2.sum() - sliced])
+            dist.all_reduce(sq, group=self.group)
+            dist.all_reduce(sq[:1], group=self.tp_group)
+            sq = sq.sum().reshape(1)
         norm = sq.sqrt()[0]
         # optax: where(norm < max, g, g / norm * max)
         clip = norm >= self.max_norm
@@ -361,7 +411,8 @@ class ShardedOptimizer:
             v.mul_(b2).addcmul_(g, g, value=1 - b2)
             denom = (v.sqrt() / bc2_sqrt).add_(c.adam_eps)
             p.addcdiv_(m, denom, value=-step_size)
-            dist.all_gather_into_tensor(self.flat[b.start:b.stop], p.clone())
+            dist.all_gather_into_tensor(self.flat[b.start:b.stop], p.clone(),
+                                        group=self.group)
 
 
 def make_optimizer(modules: Dict[str, nn.Module], cfg: TrainConfig) -> Optimizer:
@@ -376,16 +427,22 @@ class Trainer:
     With ``sharded`` (a process group is up) the batch is this rank's rows
     of the global batch, the optimizer is ``ShardedOptimizer`` over the
     group's ranks, the draws are the global batch's rows of this rank, and
-    the returned ``loss`` is the global mean."""
+    the returned ``loss`` is the global mean. Under tensor parallelism
+    ``tp_plan`` (``parallel/tensor.shard_modules_``) names the sliced
+    parameters and ``group`` is the data-parallel group: the ranks of one
+    tp group take the same rows and the same draws."""
 
     def __init__(self, modules: Dict[str, nn.Module], cfg: TrainConfig,
-                 dtype=torch.bfloat16, sharded: bool = False):
+                 dtype=torch.bfloat16, sharded: bool = False, group=None,
+                 tp_plan=None):
         self.modules, self.cfg, self.dtype = modules, cfg, dtype
-        self.sharded = sharded
+        self.sharded, self.group = sharded, group
         if sharded:
-            self.world, self.rank = dist.get_world_size(), dist.get_rank()
+            self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
             self.optimizer = ShardedOptimizer(
-                [p for m in modules.values() for p in m.parameters()], cfg)
+                [p for m in modules.values() for p in m.parameters()], cfg, group,
+                None if tp_plan is None else tp_plan.tp.group,
+                () if tp_plan is None else tp_plan.sharded_params(modules))
         else:
             self.world, self.rank = 1, 0
             self.optimizer = make_optimizer(modules, cfg)
@@ -400,6 +457,6 @@ class Trainer:
         metrics["commit"], metrics["grad_norm"] = self.optimizer.step()
         if self.sharded:
             total = metrics["loss"].reshape(1).clone()
-            dist.all_reduce(total)
+            dist.all_reduce(total, group=self.group)
             metrics["loss"] = total[0] / self.world
         return metrics

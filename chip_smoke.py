@@ -109,7 +109,21 @@ Phases, one line each (any failure raises and exits non-zero):
      cuda`` over two generated / reference pairs of 27 frames at 512 px as
      ``.npy`` stacks with WAVs, twice; each metric's seconds on one clip;
      ``SyncEvaluator.evaluate_tube`` on a seeded 30-frame tube, card
-     against CPU.
+     against CPU;
+ 14. DWPose, the data tools, pre-encoded batches, windows over ranks and
+     tensor parallelism: YOLOX-L and RTMPose-l (133 keypoints) seeded at
+     their published widths, saved as the reference's files, loaded on the
+     card and the CPU (rel L2, ms a call); ``Wholebody`` on a 512 px and a
+     1280 x 720 frame (seconds a frame, boxes and keypoints card vs CPU);
+     ``tools/curate_data --yoloface`` on two of phase 11's ``.npy`` clips,
+     card against CPU; one pre-encoded micro-step (the UNet alone) at
+     phase 7's point, launches derived from the model, its loss through
+     the kernels against the plain versions; ``generate_latents(group=)``
+     (the windows split) at world 1 over NCCL against no group; K1, K6, K2,
+     K2-bwd, K3, K4 and K8 at one tp = 2 rank's shapes against their plain
+     versions; the bytes a rank holds at flagship widths; a tp = 2 step
+     (full widths, one layer a block) as two processes on the card over
+     gloo, against the same two micro-steps in one process.
 Then a JSON line with the bisect variants, one with the kernels, the card
 line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +131,7 @@ Matrix products in the plain versions run in full fp32 (TF32 off for both
 cuBLAS and cuDNN).
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -439,13 +454,17 @@ def gathered_rows(l, frac):
     return min(l, -(-k // 8) * 8) if k else 0
 
 
-def kernel_cases(torch, dev, gen):
+def kernel_cases(torch, dev, gen, tp=1):
     """Yield (kernel name, label, kernel fn, plain fn, library fn or None,
     (bound ms, bound by), extras) at the shapes the clip and training paths
     use; the first case of each kernel is its main-path shape. extras may
     hold "timing" (the (kernel, plain) pair to time in place of the two
     compared), "chain" (a second library yardstick) and "alone" (the
-    kernel's launch without its wrapper's other work)."""
+    kernel's launch without its wrapper's other work). With ``tp`` > 1,
+    the shapes one rank of tensor parallelism gives the kernels it
+    changes (``parallel/tensor.py``): K1 / K6 on d_inner / tp, K2 / K2-bwd /
+    K3 on heads / tp (the 5-head res-64 attention stays whole), K4 on H /
+    tp, K8 on C_out / tp."""
     import torch.nn.functional as F
 
     from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
@@ -456,10 +475,11 @@ def kernel_cases(torch, dev, gen):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     def grouped(dp, hw, bp, rows=None):
-        # one SS2D block at d_inner = dp: rank = ceil(d_model / 16), L = h*w
-        # tokens (or the gather's ``rows`` slots) + 33 tail tokens (1 id +
-        # 32 audio)
+        # one SS2D block at d_inner = dp (its tp slice: dp / tp): rank =
+        # ceil(d_model / 16), L = h*w tokens (or the gather's ``rows``
+        # slots) + 33 tail tokens (1 id + 32 audio)
         g, n_tok, rank = 4, (rows or hw * hw) + 33, -(-dp // 2 // 16)
+        dp //= tp
         u = rnd(n_tok, bp, 2 * dp)
         slab = torch.zeros(n_tok, bp, g * 128, device=dev)
         for gi in range(g):
@@ -479,6 +499,7 @@ def kernel_cases(torch, dev, gen):
 
     def k1(dp, hw, rows=None):
         args = grouped(dp, hw, 56, rows)  # Bp = 4 CFG x 14 frames
+        dp //= tp
         l, bp, r = args[0].shape[0], 56, args[6]
         # per (token, row, group, channel): the rank + 1 lane projection,
         # softplus, and per state exp + mul + 2 FMA (y and h)
@@ -493,12 +514,15 @@ def kernel_cases(torch, dev, gen):
 
     # the window-step's three SS2D resolutions: res-64 (rank 20), res-32
     # (rank 40), res-16 (rank 80)
-    yield ("ssm_scan_grouped", "Dp=640 L=4096+33 Bp=56 (res-64)", *k1(640, 64))
-    yield ("ssm_scan_grouped", "Dp=1280 L=1024+33 Bp=56 (res-32)", *k1(1280, 32))
-    yield ("ssm_scan_grouped", "Dp=2560 L=256+33 Bp=56 (res-16)", *k1(2560, 16))
+    per = f" (tp {tp} rank)" if tp > 1 else ""
+    yield ("ssm_scan_grouped", f"Dp={640 // tp} L=4096+33 Bp=56 (res-64){per}", *k1(640, 64))
+    yield ("ssm_scan_grouped", f"Dp={1280 // tp} L=1024+33 Bp=56 (res-32){per}",
+           *k1(1280, 32))
+    yield ("ssm_scan_grouped", f"Dp={2560 // tp} L=256+33 Bp=56 (res-16){per}",
+           *k1(2560, 16))
     # the gather of modes 0 / 1 (phase 9): a 6/16 budget of each resolution's
     # tokens (the ~31% face box of C9) + the 33-token tail
-    for dp, hw in ((640, 64), (1280, 32), (2560, 16)):
+    for dp, hw in ((640, 64), (1280, 32), (2560, 16)) if tp == 1 else ():
         k = gathered_rows(hw * hw, C9_CAPACITY)
         yield ("ssm_scan_grouped", f"Dp={dp} L={k}+33 Bp=56 (gathered res-{hw})",
                *k1(dp, hw, k))
@@ -509,6 +533,7 @@ def kernel_cases(torch, dev, gen):
         # adjoint; the slab's mask lane (its gradient is the -1e9 row times
         # ddt) is left out of the comparison
         u, slab, dtw, a, d, bias, rank = grouped(dp, hw, 25)
+        dp //= tp
         ins = [t.requires_grad_(True) for t in (u, slab, dtw, a, d, bias)]
         gy = rnd(u.shape[0], 25, 4 * dp)
         keep = [j for j in range(4 * 128) if j % 128 != ss.MASK_LANE]
@@ -544,7 +569,7 @@ def kernel_cases(torch, dev, gen):
     # the training groups at res-64, res-32 and res-16
     for dp, hw in ((640, 64), (1280, 32), (2560, 16)):
         grads, plain_grads, timing, lib, bnd, floor = k6(dp, hw)
-        yield ("ssm_scan_bwd", f"Dp={dp} L={hw * hw}+33 Bp=25 G=4 (train)",
+        yield ("ssm_scan_bwd", f"Dp={dp // tp} L={hw * hw}+33 Bp=25 G=4 (train){per}",
                grads, plain_grads, lib, bnd, {"timing": timing, "floor": floor})
 
     def k5(lp, bp, dp, dtype):
@@ -576,7 +601,7 @@ def kernel_cases(torch, dev, gen):
                                     (256, 8, 512, torch.float32,
                                      "MambaUPNet stage 2"),
                                     (1024, 8, 256, torch.float32,
-                                     "MambaUPNet stage 3")):
+                                     "MambaUPNet stage 3")) if tp == 1 else ():
         args, nbytes, ops = k5(lp, bp, dp, dtype)
         bnd = bound(nbytes, ops, PEAK_FP32)
         # the special-function floor: 16 exps and a softplus (exp, log) per
@@ -615,23 +640,30 @@ def kernel_cases(torch, dev, gen):
         b, s, c = x.shape
         return x.view(b, s, h, c // h).transpose(1, 2).contiguous()
 
+    def per_rank(shapes):
+        """(..., C, H) attention shapes -> one tp rank's (C / tp, H / tp),
+        leaving out those whose heads do not divide (they stay whole)."""
+        if tp == 1:
+            return shapes
+        return [(*x[:-2], x[-2] // tp, x[-1] // tp) for x in shapes if x[-1] % tp == 0]
+
     # the window-step's four resolutions (res-64, -32, -16, the res-8 mid
     # block) and the 576 px latent (S = 5184, no multiple of the tiles);
     # the training backward at the same S and C
-    for b, s, c, h in ((56, 4096, 320, 5), (56, 1024, 640, 10),
-                       (56, 5184, 320, 5), (56, 256, 1280, 20),
-                       (56, 64, 1280, 20)):
+    for b, s, c, h in per_rank(((56, 4096, 320, 5), (56, 1024, 640, 10),
+                                (56, 5184, 320, 5), (56, 256, 1280, 20),
+                                (56, 64, 1280, 20))):
         q, k, v = rnd(b, s, c), rnd(b, s, c), rnd(b, s, c)
         qh, kh, vh = (heads_view(x, h) for x in (q, k, v))
         ops = 4 * b * h * s * s * (c // h)
-        yield ("mha", f"B={b} S={s} C={c} H={h}",
+        yield ("mha", f"B={b} S={s} C={c} H={h}{per}",
                lambda q=q, k=k, v=v, h=h: mha.mha_tokens(q, k, v, h),
                lambda q=q, k=k, v=v, h=h: mha.mha_tokens_ref(q, k, v, h),
                lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
                bound(4 * b * s * c * 2, ops, PEAK_BF16))
-    for b, s, c, h in ((25, 4096, 320, 5), (25, 1024, 640, 10),
-                       (25, 5184, 320, 5), (25, 256, 1280, 20),
-                       (25, 64, 1280, 20)):
+    for b, s, c, h in per_rank(((25, 4096, 320, 5), (25, 1024, 640, 10),
+                                (25, 5184, 320, 5), (25, 256, 1280, 20),
+                                (25, 64, 1280, 20))):
         q, k, v, do = (rnd(b, s, c) for _ in range(4))
         o, lse = mha._mha_fwd(q, k, v, h, with_lse=True)
         qh, kh, vh = (heads_view(x, h).detach().requires_grad_(True)
@@ -640,7 +672,7 @@ def kernel_cases(torch, dev, gen):
         # the five products of the backward: S = QK^T, dP = dO V^T,
         # dV = P^T dO, dQ = dS K, dK = dS^T Q
         ops = 5 * 2 * b * h * s * s * (c // h)
-        yield ("mha_bwd", f"B={b} S={s} C={c} H={h} (train)",
+        yield ("mha_bwd", f"B={b} S={s} C={c} H={h} (train){per}",
                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, h=h:
                    mha.mha_tokens_bwd(q, k, v, o, lse, do, h),
                lambda q=q, k=k, v=v, do=do, h=h: mha.mha_tokens_bwd_ref(q, k, v, do, h),
@@ -650,16 +682,15 @@ def kernel_cases(torch, dev, gen):
     # K3: the 14-frame window-step at res-64 / -32 / -16 / -8 (4 CFG x 14
     # frames), 4 CFG x 25 frames at res-64, training's 25 frames, and the
     # reference's default 576 px window (4 CFG x 25 frames, S = 72^2)
-    for b, f, s, h in ((4, 14, 4096, 5), (4, 25, 4096, 5), (4, 14, 1024, 10),
-                       (4, 14, 256, 20), (4, 14, 64, 20), (1, 25, 4096, 5),
-                       (4, 25, 5184, 5)):
-        c = 64 * h
+    for b, f, s, c, h in per_rank([(b, f, s, 64 * h, h) for b, f, s, h in (
+            (4, 14, 4096, 5), (4, 25, 4096, 5), (4, 14, 1024, 10), (4, 14, 256, 20),
+            (4, 14, 64, 20), (1, 25, 4096, 5), (4, 25, 5184, 5))]):
         q, k, v = (rnd(b * f, s, c) for _ in range(3))
         # SDPA over the frame axis: (B*S, H, F, d), laid out beforehand
         qf, kf, vf = (x.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
                       .reshape(b * s, h, f, 64) for x in (q, k, v))
         ops = 4 * b * s * h * f * f * 64
-        yield ("frame_attention", f"B*F={b * f} F={f} S={s} C={c} H={h}",
+        yield ("frame_attention", f"B*F={b * f} F={f} S={s} C={c} H={h}{per}",
                lambda q=q, k=k, v=v, f=f, h=h: mha.frame_attention_tokens(q, k, v, f, h),
                lambda q=q, k=k, v=v, f=f, h=h: mha.frame_attention_tokens_ref(q, k, v, f, h),
                lambda qf=qf, kf=kf, vf=vf: F.scaled_dot_product_attention(qf, kf, vf),
@@ -673,17 +704,20 @@ def kernel_cases(torch, dev, gen):
         return F.linear(h, w2, b2)
 
     # the window-step's feed-forwards (res-64, -32, -16 and the res-8 mid
-    # block), and C = 1280 at res-64's M (off the path)
+    # block), and C = 1280 at res-64's M (off the path); a tp rank holds
+    # H / tp of the 4C hidden units (its partial output, bias zero)
     for m, c, what in ((56 * 4096, 320, "res-64"), (56 * 1024, 640, "res-32"),
                        (56 * 256, 1280, "res-16"), (56 * 64, 1280, "res-8"),
-                       (56 * 4096, 1280, "off the path")):
-        x = rnd(m, c)
-        w1, b1 = rnd(8 * c, c, scale=c ** -0.5), rnd(8 * c, dtype=torch.float32, scale=0.1)
-        w2, b2 = rnd(c, 4 * c, scale=(4 * c) ** -0.5), rnd(c, dtype=torch.float32, scale=0.1)
-        yield ("geglu_mlp", f"M={m} C={c} ({what})",
+                       (56 * 4096, 1280, "off the path"))[:5 if tp == 1 else 4]:
+        x, hid = rnd(m, c), 4 * c // tp
+        w1, b1 = rnd(2 * hid, c, scale=c ** -0.5), rnd(2 * hid, dtype=torch.float32, scale=0.1)
+        w2 = rnd(c, hid, scale=(4 * c) ** -0.5)
+        b2 = rnd(c, dtype=torch.float32, scale=0.1) if tp == 1 else \
+            torch.zeros(c, device=dev)
+        yield ("geglu_mlp", f"M={m} C={c} H={hid} ({what}){per}",
                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: mlp.geglu_mlp(x, w1, b1, w2, b2),
                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: mlp.geglu_mlp_ref(x, w1, b1, w2, b2),
-               None, bound(2 * (2 * m * c + 12 * c * c), 24 * m * c * c, PEAK_BF16),
+               None, bound(2 * (2 * m * c + 3 * hid * c), 6 * m * c * hid, PEAK_BF16),
                {"chain": lambda x=x, w1=w1, b1=b1.to(bf), w2=w2, b2=b2.to(bf):
                     geglu_chain(x, w1, b1, w2, b2)})
 
@@ -699,7 +733,7 @@ def kernel_cases(torch, dev, gen):
     for m, c, dtype in ((56 * 4096, 320, bf), (56 * 1024, 640, bf),
                         (56 * 256, 1280, bf), (56 * 256, 2560, bf),
                         (56 * 32, 1024, torch.float32),
-                        (1500, 384, torch.float32)):
+                        (1500, 384, torch.float32)) if tp == 1 else ():
         x = rnd(m, c, dtype=dtype, scale=2.0) + 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         item = x.element_size()
@@ -718,7 +752,7 @@ def kernel_cases(torch, dev, gen):
     # resnet input
     for n, m, c, eps in ((56, 4096, 320, 1e-6), (4, 14 * 4096, 320, 1e-5),
                          (14, 512 * 512, 128, 1e-6), (56, 1024, 640, 1e-6),
-                         (56, 256, 1280, 1e-6), (56, 64, 1280, 1e-6)):
+                         (56, 256, 1280, 1e-6), (56, 64, 1280, 1e-6)) if tp == 1 else ():
         x = rnd(n, m, c, scale=2.0) - 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         # F.group_norm on the channels-last NCHW view (N, C, M, 1)
@@ -729,16 +763,17 @@ def kernel_cases(torch, dev, gen):
                lambda xv=xv, g=g.to(bf), b=b.to(bf), eps=eps:
                    F.group_norm(xv, 32, g, b, eps),
                bound(2 * n * m * c * 2 + 8 * c, 10 * n * m * c, PEAK_FP32))
-    for n, m, c in ((56, 4096, 320), (56, 256, 2560)):
+    for n, m, c in ((56, 4096, 320), (56, 256, 2560)) if tp == 1 else ():
         x = rnd(n, m, c, scale=2.0) - 0.5
         g, b = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
         yield ("group_norm", f"statistics alone (K8's), (N, M, C) = ({n}, {m}, {c})",
                lambda x=x, g=g, b=b: norms.group_norm_affine(x, g, b, 32, 1e-5),
                lambda x=x, g=g, b=b: norms.gn_affine(x, g, b, 32, 1e-5), None,
                bound(n * m * c * 2 + 8 * c + 8 * n * c, 3 * n * m * c, PEAK_FP32))
-    for n, hw, c, co in ((56, 64, 320, 320), (56, 32, 640, 640),
-                         (56, 16, 2560, 1280), (56, 8, 1280, 1280),
-                         (14, 512, 128, 128)):
+    # a tp rank: C_out / tp (the VAE is whole)
+    for n, hw, c, co in ((56, 64, 320, 320 // tp), (56, 32, 640, 640 // tp),
+                         (56, 16, 2560, 1280 // tp), (56, 8, 1280, 1280 // tp),
+                         (14, 512, 128, 128))[:5 if tp == 1 else 4]:
         x = rnd(n, hw, hw, c, scale=1.5) + 0.3
         g = 1.0 + rnd(c, dtype=torch.float32, scale=0.1)
         b = rnd(c, dtype=torch.float32, scale=0.5)
@@ -751,7 +786,7 @@ def kernel_cases(torch, dev, gen):
         # K8's launch alone, on operands its wrapper prepares
         ops8 = resconv.conv_operands(x, g, b, 32, 1e-5, w, cb)
         m = n * hw * hw
-        yield ("gn_silu_conv3x3", f"({n}, {hw}, {hw}, {c} -> {co})",
+        yield ("gn_silu_conv3x3", f"({n}, {hw}, {hw}, {c} -> {co}){per}",
                lambda x=x, g=g, b=b, w=w, cb=cb:
                    resconv.gn_silu_conv3x3(x, g, b, 32, 1e-5, w, cb),
                lambda x=x, g=g, b=b, w=w, cb=cb:
@@ -1925,6 +1960,503 @@ def phase13(torch, dev, card):
     shutil.rmtree(OUT, ignore_errors=True)
 
 
+# phase 14: DWPose, the data tools, pre-encoded batches, windows split over
+# ranks, tensor parallelism (per-rank kernel shapes, a two-process tp = 2
+# step on the one card over gloo)
+DWPOSE_TOL = 1e-4          # card vs CPU rel L2 of YOLOX-L / RTMPose-l (fp32)
+CURATE_CLIPS, CURATE_FRAMES = 2, 8
+# the tp = 2 step: full widths, one layer a block (the JAX package's
+# flagship TP test), 256 px, 4 frames, batch 1, block checkpointing, bf16
+TP_HW, TP_FRAMES = 32, 4
+# bf16 compute: a tp rank sums its partial products in another order
+TP_LOSS_TOL, TP_UPDATE_TOL = 2e-2, 5e-2
+
+
+def tp_unet_config():
+    import dataclasses
+
+    from actalker_tpu_torch.models.unet import UNetConfig
+
+    return dataclasses.replace(UNetConfig(), layers_per_block=1,
+                               gradient_checkpointing=True)
+
+
+def micro_step_launches_of(unet):
+    """Launches per training micro-step with one checkpoint scope per block,
+    derived from ``unet``: every forward kernel twice (forward, recompute),
+    K6 once per (SS2D block, group), K2-bwd once per spatial
+    self-attention."""
+    f = forward_launches(unet)
+    return {**{n: 2 * c for n, c in f.items()},
+            "ssm_scan_bwd": 4 * f["ssm_scan_grouped"], "mha_bwd": f["mha"],
+            "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
+
+
+def tp_step_rank(rank, world, port, out):
+    """One rank of the tp = 2 step on the card (gloo takes CUDA tensors;
+    NCCL refuses two ranks on one device). Rank 0 first runs the two
+    micro-steps (a commit each) of the seeded tp_unet_config() model and
+    heads unsliced, alone, keeping its parameters on the host; then both
+    ranks run the same two steps sliced over the two ranks, the second
+    counted and timed, and rank 0 compares the gathered update with its
+    own."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from actalker_tpu_torch.ops import mha, mlp, norms, resconv, selective_scan as ss
+    from actalker_tpu_torch.parallel import distributed as P
+    from actalker_tpu_torch.parallel.tensor import TPGroup, shard_modules_
+    from actalker_tpu_torch.training import train
+    from actalker_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    kernels = {k.name: k for k in (ss.KERNEL, ss.ARRANGED_KERNEL, mha.MHA_KERNEL,
+                                   mha.FRAME_KERNEL, mlp.KERNEL, ss.BWD_KERNEL,
+                                   mha.MHA_BWD_KERNEL, norms.LN_KERNEL,
+                                   norms.GN_KERNEL, resconv.KERNEL)}
+    tcfg = TrainConfig(grad_accum_steps=1, learning_rate=1e-4, adam_eps=1.0,
+                       max_grad_norm=1e6)
+
+    def run(mods, trainer):
+        batch = next(train.synthetic_batches(1, TP_FRAMES, TP_HW, seed=0, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rec = []
+        for step in range(2):
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            m = trainer.step(batch, generator=gen)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                        "grad_norm": float(m["grad_norm"]),
+                        "counts": {n: k.launches for n, k in kernels.items()}})
+        return rec
+
+    def host(mods, params=None):
+        return {n: {k: p.detach().float().cpu() for k, p in
+                    (params[n] if params else m.named_parameters())}
+                for n, m in mods.items()}
+
+    try:
+        dp_group, tp_group, _, i_tp = P.mesh_groups(1, world)
+        res = {}
+        if rank == 0:
+            single = train.build_modules(tp_unet_config(), dev, torch.bfloat16)
+            p0 = host(single)
+            res["single"] = run(single, Trainer(single, tcfg, torch.bfloat16))
+            after = host(single)
+            del single
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        mods = train.build_modules(tp_unet_config(), dev, torch.bfloat16)
+        plan = shard_modules_(mods, TPGroup(tp_group, world, i_tp))
+        res["n_sliced_local"] = sum(p.numel() for p in plan.sharded_params(mods))
+        res["launches_derived"] = micro_step_launches_of(mods["unet"])
+        torch.cuda.reset_peak_memory_stats()
+        res["records"] = run(mods, Trainer(mods, tcfg, torch.bfloat16, sharded=True,
+                                           group=dp_group, tp_plan=plan))
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        whole = host(mods, {n: plan.gather(n, dict(m.named_parameters())).items()
+                            for n, m in mods.items()})
+        if rank == 0:
+            res["update_rel"] = {}
+            for n, ref in after.items():
+                num = den = 0.0
+                for k, b in ref.items():
+                    a = whole[n][k].double() - p0[n][k].double()
+                    b = b.double() - p0[n][k].double()
+                    num += float((a - b).square().sum())
+                    den += float(b.square().sum())
+                res["update_rel"][n] = math.sqrt(num / max(den, 1e-300))
+        torch.save(res, os.path.join(out, f"tp_rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sharpen_(torch, convs, rows, probe, shift_to, k):
+    """A seeded detector's objectness is near one value at every anchor
+    (every score a tie, or every anchor a candidate). Rescale rows ``rows``
+    of its 1x1 prediction ``convs`` so that, on ``probe()`` (the convs'
+    outputs on a frame, those rows), the logits have mean 0 and std 1 and
+    the k-th largest sits at ``shift_to``: a few anchors pass the score
+    gates, each with its own score, as with a trained detector."""
+    with torch.no_grad():
+        logits = probe()
+        mu, sd = float(logits.mean()), float(logits.std())
+        top = float(logits.sort(descending=True).values[k - 1])
+        shift = shift_to - (top - mu) / sd
+        for conv in convs:
+            conv.weight[rows] /= sd
+            conv.bias[rows] = (conv.bias[rows] - mu) / sd + shift
+
+
+def head_outputs(torch, convs, run):
+    """Each of ``convs``' outputs while ``run()`` goes, flattened per
+    channel: (channels, positions over all convs)."""
+    outs = []
+    hooks = [c.register_forward_hook(lambda m, i, o: outs.append(
+        o.detach().float().transpose(0, 1).flatten(1))) for c in convs]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.cat(outs, 1).cpu()
+
+
+def phase14(torch, dev, kernels, card, results):
+    """DWPose, the data tools, pre-encoded batches, windows split over
+    ranks and tensor parallelism on the card. Returns the launches of the
+    pre-encoded micro-step, of the window-split clip and of rank 0's tp
+    micro-step."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from actalker_tpu_torch.frontend.pose_draw import Wholebody, draw_pose
+    from actalker_tpu_torch.io import init as I
+    from actalker_tpu_torch.models import rtmpose, yolox
+    from actalker_tpu_torch.tools import curate_data, eval_weights
+
+    shutil.rmtree(OUT, ignore_errors=True)
+    out = os.path.join(OUT, "phase14")
+    counts = {}
+    print(f"[14 start] this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB of the card", flush=True)
+
+    # ---- DWPose: YOLOX-L and RTMPose-l seeded, saved, loaded on both sides
+    paths = eval_weights.write_seeded_dwpose(out)
+    r = np.random.default_rng(14)
+    ins = {"yolox": r.uniform(0, 255, (1, 640, 640, 3)).astype(np.float32),
+           "dwpose": r.standard_normal((1, 384, 288, 3)).astype(np.float32)}
+    nets = {}
+    for key, load in (("yolox", I.load_yolox), ("dwpose", I.load_dwpose)):
+        on_card, on_cpu = load(paths[key], dev), load(paths[key], "cpu")
+        x = torch.from_numpy(ins[key])
+        with torch.no_grad():
+            y_c = flat_output(torch, on_card(x.to(dev)))
+            y_p = flat_output(torch, on_cpu(x))
+            ms = timed(torch, lambda: on_card(x.to(dev)), 5)
+        rel = errors(y_c, y_p)[1]
+        print(f"[14 dwpose] {os.path.basename(paths[key])} "
+              f"({sum(p.numel() for p in on_card.parameters())} parameters, "
+              f"input {tuple(x.shape)}): card vs CPU rel_l2 {rel:.3g} (tol "
+              f"{DWPOSE_TOL}) | {ms:.4f} ms a call | {card}", flush=True)
+        if not (torch.isfinite(y_c).all() and rel <= DWPOSE_TOL):
+            raise RuntimeError(f"{key} on the card differs from the CPU")
+        nets[key] = (on_card, on_cpu)
+    # the seeded head made detector-like (``sharpen_``): person class only,
+    # boxes of e^2 strides, the 4th strongest anchor of a 512 px frame at
+    # score 0.3
+    frames = {(h, w): r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+              for h, w in ((512, 512), (720, 1280))}
+    with torch.no_grad():
+        for net in nets["yolox"]:
+            for i in range(3):
+                net.head.cls_preds[i].weight.zero_()
+                net.head.cls_preds[i].bias.fill_(-10.0)
+                net.head.cls_preds[i].bias[0] = 3.0
+                net.head.reg_preds[i].bias[2:4] += 2.0
+    card_net = nets["yolox"][0]
+    padded = torch.from_numpy(yolox.letterbox(frames[(512, 512)], (640, 640))[0])[None]
+    obj = [card_net.head.obj_preds[i] for i in range(3)]
+    logits = head_outputs(torch, obj, lambda: card_net(padded.to(dev)))[0]
+    for net in nets["yolox"]:
+        sharpen_(torch, [net.head.obj_preds[i] for i in range(3)], [0],
+                 lambda: logits, -0.78, 4)
+    det_c, det_p = (yolox.YoloXPersonDetector(n) for n in nets["yolox"])
+    pose_c, pose_p = (rtmpose.RTMPoseWholebody(n) for n in nets["dwpose"])
+    wholebody = Wholebody(det_c, pose_c)
+    for (h, w), img in frames.items():
+        wholebody(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kp, sc = wholebody(img)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        boxes_c, boxes_p = det_c(img), det_p(img)
+        box_err = (float(np.abs(boxes_c - boxes_p).max()) if boxes_c.shape == boxes_p.shape
+                   and len(boxes_c) else None)
+        mine = boxes_c[:2]
+        (kc, scc), (kq, scq) = pose_c(img, mine), pose_p(img, mine)
+        kerr, serr = float(np.abs(kc - kq).max()), float(np.abs(scc - scq).max())
+        # the seeded pose head's SimCC maxima are no probabilities: clipped
+        # to [0, 1] for the renderer's colour scale
+        canvas = draw_pose({"bodies": {"candidate": kp[0, :18] / [w, h],
+                                       "subset": np.arange(18)[None].astype(float),
+                                       "score": np.clip(sc[:1, :18], 0.0, 1.0)}}, h, w)
+        print(f"[14 dwpose] Wholebody {w}x{h}: {sec:.4f} s a frame, {len(kp)} "
+              f"person(s) (boxes card {len(boxes_c)}, CPU {len(boxes_p)}, max abs "
+              f"{box_err} px) | the first {max(len(mine), 1)} box(es)' keypoints card "
+              f"vs CPU max abs {kerr:.3g} px, scores {serr:.3g} | canvas "
+              f"{canvas.shape} | {card}", flush=True)
+        if len(boxes_c) != len(boxes_p) or (box_err or 0.0) > 1e-2 or kerr > 1e-2 \
+                or serr > 1e-3 or not np.isfinite(kp).all():
+            raise RuntimeError("Wholebody on the card differs from the CPU")
+    del nets, det_c, det_p, pose_c, pose_p, wholebody
+    torch.cuda.empty_cache()
+
+    # ---- curate_data on phase 11's .npy corpus with a yolov5-face file
+    from actalker_tpu_torch.models.yoloface import YoloFaceNet
+
+    meta, _ = write_corpus(os.path.join(out, "corpus"))
+    from actalker_tpu_torch.models.yoloface import YoloFaceDetector
+
+    face = eval_weights.seeded(YoloFaceNet, 3)
+    with open(meta) as f:
+        first = np.load(json.load(f)[0]["video_path"], mmap_mode="r")[0]
+    detect = face.model[23].m
+    with torch.no_grad():        # the face class certain; objectness sharpened
+        for conv in detect:      # so that ~20 anchors of a frame pass 0.5
+            conv.weight.view(3, 16, -1)[:, 15] = 0.0
+            conv.bias.view(3, 16)[:, 15] = 6.0
+    obj_rows = [a * 16 + 4 for a in range(3)]
+    probe = YoloFaceDetector(face).letterbox(np.ascontiguousarray(first[..., ::-1]))
+    logits = head_outputs(torch, detect, lambda: face(probe))[obj_rows].flatten()
+    sharpen_(torch, detect, obj_rows, lambda: logits, 0.0, 20)
+    face_path = os.path.join(out, "yolov5m-face.pth")
+    torch.save(face.state_dict(), face_path)
+    with open(meta) as f:
+        clips = [c["video_path"] for c in json.load(f)][:CURATE_CLIPS]
+    recs = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res = curate_data.main([os.path.join(out, f"{where}.json"), *clips,
+                                "--max-frames", str(CURATE_FRAMES), "--yoloface",
+                                face_path, "--device", where])
+        recs[where] = (res, time.perf_counter() - t0)
+    (a, sec_a), (b, sec_b) = recs["cuda"], recs["cpu"]
+    same = len(a["clips"]) == len(b["clips"]) == CURATE_CLIPS and all(
+        x[k] == y[k] for x, y in zip(a["clips"], b["clips"])
+        for k in ("video_path", "audio_path", "frames", "fps", "motion_bucket"))
+    geo = max((float(np.abs(np.asarray(x[k]) - np.asarray(y[k])).max())
+               for x, y in zip(a["clips"], b["clips"]) for k in ("bboxes", "landmarks")),
+              default=float("nan"))
+    qual = max((abs(x["quality"] - y["quality"]) / max(abs(y["quality"]), 1e-9)
+                for x, y in zip(a["clips"], b["clips"])), default=float("nan"))
+    print(f"[14 curate] curate_data --yoloface on {CURATE_CLIPS} .npy clips x "
+          f"{CURATE_FRAMES} frames at {PX} px: card {sec_a / CURATE_CLIPS:.4f} s a clip "
+          f"({a['detector'].passes} network passes), CPU {sec_b / CURATE_CLIPS:.4f} s "
+          f"a clip | records card vs CPU: fields equal {same}, boxes / landmarks max "
+          f"abs {geo:.3g} px, quality rel {qual:.3g} | {card}", flush=True)
+    if not (same and geo <= 1e-2 and qual <= 1e-4
+            and a["detector"].passes == CURATE_CLIPS * CURATE_FRAMES):
+        raise RuntimeError("curate_data on the card differs from the CPU run")
+
+    # ---- one pre-encoded micro-step at phase 7's point: the UNet alone
+    from actalker_tpu_torch.models.unet import UNetConfig
+    from actalker_tpu_torch.training import train
+    from actalker_tpu_torch.training.trainer import (
+        Trainer, TrainConfig, diffusion_loss, sample_draws)
+
+    unet = train.build_modules(UNetConfig(gradient_checkpointing=True), dev,
+                               torch.bfloat16)["unet"]
+    tcfg = TrainConfig(grad_accum_steps=4)
+    trainer = Trainer({"unet": unet}, tcfg, torch.bfloat16)
+    batch = next(train.synthetic_batches(1, 25, PX // 8, seed=0, device=dev,
+                                         raw_heads=False, c0=320))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trainer.step(batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = trainer.step(batch, generator=gen)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts["train_pre_encoded"] = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = micro_step_launches_of(unet)
+    draws = sample_draws(batch, tcfg, torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        loss_k = diffusion_loss({"unet": unet}, batch, tcfg, draws, dtype=torch.bfloat16)[0].item()
+        with plain_ops():
+            loss_p = diffusion_loss({"unet": unet}, batch, tcfg, draws,
+                                    dtype=torch.bfloat16)[0].item()
+    print(f"[14 pre-encoded] Trainer({{'unet'}}) on a raw_heads=False batch ({PX} px x "
+          f"25 frames, batch 1, accumulation 4, block checkpointing): micro-step "
+          f"{sec:.4f} s, loss {loss:.6g} | peak max_memory_allocated {peak:.2f} GiB | "
+          f"launches {counts['train_pre_encoded']} (derived {want}) | loss through the "
+          f"kernels {loss_k:.6g}, plain {loss_p:.6g} (tol {UNET_TOL} relative) | {card}",
+          flush=True)
+    if counts["train_pre_encoded"] != want:
+        raise RuntimeError(f"pre-encoded micro-step launches != {want}")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= UNET_TOL * abs(loss_p)):
+        raise RuntimeError(f"pre-encoded loss through the kernels {loss_k} vs plain {loss_p}")
+    del unet, trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- windows split over ranks: sample_video(group=) at world 1 (NCCL)
+    from actalker_tpu_torch.parallel import distributed as P
+    from actalker_tpu_torch.pipeline.pipeline import ACTalkerPipeline
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    if not P.init_distributed("cuda") or dist.get_backend() != "nccl":
+        raise RuntimeError("phase 14: no NCCL process group from the environment")
+    try:
+        pipe = ACTalkerPipeline(seeded_modules(torch, dev), dtype=torch.bfloat16)
+        scfg = SamplerConfig(num_inference_steps=1, frames_per_batch=FRAMES,
+                             windows_per_call=1, gate=(1, 1))
+        rng = np.random.default_rng(0)
+        args = (rng.standard_normal((PX, PX, 3)).astype(np.float32) * 0.2,
+                rng.standard_normal(512).astype(np.float32),
+                rng.standard_normal((FRAMES, 32, 1024)).astype(np.float32),
+                np.zeros((FRAMES, 32, 1024), np.float32),
+                rng.standard_normal((FRAMES, 1, 1024)).astype(np.float32),
+                np.zeros((FRAMES, 1, 1024), np.float32),
+                rng.random((FRAMES, PX, PX, 3)).astype(np.float32))
+        runs = {}
+        for name, kw in (("alone", {}), ("split", {"group": dist.group.WORLD})):
+            pipe.generate_latents(*args, scfg, seed=3, **kw)        # warm-up
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            lat = pipe.generate_latents(*args, scfg, seed=3, **kw)
+            torch.cuda.synchronize()
+            runs[name] = (lat, time.perf_counter() - t0,
+                          {n: k.launches for n, k in kernels.items()})
+        (la, sa, _), (lb, sb, cb) = runs["alone"], runs["split"]
+        per = forward_launches(pipe.m.unet)
+        want = {n: per.get(n, 0) * unet_calls(scfg, FRAMES) for n in kernels}
+        rel = errors(lb, la)[1]
+        counts["sample_split_windows"] = cb
+        print(f"[14 windows] generate_latents(group=) ({PX} px x {FRAMES} frames, 1 "
+              f"step, mode 2; NCCL, world 1: the rank's block is every window, one "
+              f"all-reduce a step) {sb:.4f} s vs without a group {sa:.4f} s | rel_l2 "
+              f"{rel:.3g} (tol {SPLIT_TOL}) | launches {cb} (derived {want}) | {card}",
+              flush=True)
+        if rel > SPLIT_TOL or not torch.isfinite(lb).all() or cb != want:
+            raise RuntimeError("sample_video(group=) differs from the call without one")
+        del pipe, runs, la, lb
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- tensor parallelism: the kernels at one tp = 2 rank's shapes
+    per_rank = {}
+    check_kernels(torch, kernel_cases(torch, dev, torch.Generator(device=dev).manual_seed(2),
+                                      tp=2), per_rank, card, "14 tp kernel")
+    for n, rr in per_rank.items():
+        results[n]["max_abs_err"] = max(results[n]["max_abs_err"], rr["max_abs_err"])
+        results[n]["tp2_rank"] = rr
+    # the bytes a rank holds at flagship widths (meta tensors: shapes only)
+    from actalker_tpu_torch.parallel.mesh import per_rank_bytes_tp
+    from actalker_tpu_torch.parallel.tensor import TPGroup, shard_modules_
+
+    from actalker_tpu_torch.models.unet import UNetSpatioTemporalCondition
+
+    with torch.device("meta"):
+        flag = UNetSpatioTemporalCondition(UNetConfig())
+    n_all = sum(p.numel() for p in flag.parameters())
+    plan = shard_modules_({"unet": flag}, TPGroup(None, 2, 0))
+    n_half = sum(p.numel() for p in plan.sharded_params({"unet": flag}))
+    n_sl = 2 * n_half
+    gb = {f"dp{dp} x tp{tp}": round(per_rank_bytes_tp(n_sl if tp > 1 else 0,
+                                                      n_all - n_sl if tp > 1 else n_all,
+                                                      dp, tp)["total"] / 1e9, 3)
+          for dp, tp in ((1, 1), (1, 2), (4, 2), (8, 1))}
+    print(f"[14 tp] UNetConfig(): {n_all} parameters, {n_sl} of them in tp slices "
+          f"({sum(map(len, plan.layouts.values()))} tensors) | per_rank_bytes_tp "
+          f"(GB) {gb}", flush=True)
+    del flag, plan
+
+    # ---- a two-process tp = 2 step on the card (gloo); this process's
+    # cached blocks go back first: the two ranks and the one-process
+    # reference share the card with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() / 2 ** 30, torch.cuda.memory_reserved() / 2 ** 30)
+    t0 = time.perf_counter()
+    mp.start_processes(tp_step_rank, args=(2, free_port(), out), nprocs=2, join=True,
+                       start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"tp_rank{i}.pt"), weights_only=False)
+             for i in range(2)]
+    r0 = ranks[0]
+    single = r0["single"]
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(r0["records"], single)]
+    want = r0["launches_derived"]
+    counts["train_tp2"] = r0["records"][1]["counts"]
+    print(f"[14 tp] tp = 2 on the card, two processes over gloo, "
+          f"layers_per_block 1 at full widths, {TP_HW * 8} px x {TP_FRAMES} frames, "
+          f"batch 1, block checkpointing, bf16: micro-step seconds tp "
+          f"{[round(x['seconds'], 4) for x in r0['records']]} vs one process "
+          f"{[round(x['seconds'], 4) for x in single]} | peak max_memory_allocated a "
+          f"rank {[round(x['peak_gib'], 2) for x in ranks]} GiB | losses "
+          f"{[round(x['loss'], 6) for x in r0['records']]} vs "
+          f"{[round(x['loss'], 6) for x in single]} (rel "
+          f"{[f'{x:.3g}' for x in loss_rel]}, tol {TP_LOSS_TOL}) | update after two "
+          f"commits vs one process, rel_l2 "
+          f"{ {n: f'{x:.3g}' for n, x in r0['update_rel'].items()} } (tol "
+          f"{TP_UPDATE_TOL}) | launches a rank {[x['records'][1]['counts'] for x in ranks]} "
+          f"(derived {want}) | {wall:.1f} s in all, this process holding "
+          f"{held[0]:.2f} GiB ({held[1]:.2f} reserved) | {card}", flush=True)
+    if max(loss_rel) > TP_LOSS_TOL or max(r0["update_rel"].values()) > TP_UPDATE_TOL:
+        raise RuntimeError("the tp = 2 step differs from the one-process step")
+    if any(x["records"][1]["counts"] != want for x in ranks) or single[1]["counts"] != want:
+        raise RuntimeError(f"tp = 2 launches a rank != derived {want}")
+    shutil.rmtree(OUT, ignore_errors=True)
+    return counts
+
+
+def check_kernels(torch, cases, results, card, tag):
+    """Each case of ``kernel_cases``: the kernel against its plain version
+    (within ``TOL``), CUDA-event times of both, of the library call and of
+    the extras, one line each; ``results`` keeps each kernel's first case's
+    numbers and the largest error over all its cases."""
+    for name, label, kern, plain, lib, (bound_ms, bound_by), *rest in cases:
+        extras = rest[0] if rest else {}
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        mx, rel = errors(out, ref)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        ok = all(bool(torch.isfinite(x.float()).all()) for x in outs) \
+            and rel <= TOL[name]
+        kern_t, plain_t = extras.get("timing", (kern, plain))
+        ms = timed(torch, kern_t, 10)
+        plain_ms = timed(torch, plain_t, 3)
+        lib_ms = timed(torch, lib, 10) if lib is not None else None
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        more = "".join(f" {what} {timed(torch, extras[key], 10):.4f} ms"
+                       for key, what in (("alone", "launch alone"),
+                                         ("chain", "library chain"))
+                       if key in extras)
+        if "floor" in extras:
+            more += f" exp floor {extras['floor']:.4f} ms"
+        print(f"[{tag}] {name} {label}: max_abs {mx:.4g} rel_l2 {rel:.3g} "
+              f"(tol {TOL[name]}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"library {lib_txt}{more} bound {bound_ms:.4f} ms ({bound_by}) "
+              f"| {card}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} {label} disagrees with its plain version")
+        r = results.setdefault(name, {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        r["max_abs_err"] = max(r["max_abs_err"], mx)
+        del out, ref, outs
+    # the last case's closures hold its inputs (the VAE-sized K8 case: ~2
+    # GiB), which would otherwise count in the later phases' peaks
+    del kern, plain, lib, rest, extras, kern_t, plain_t
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1955,42 +2487,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for name, label, kern, plain, lib, (bound_ms, bound_by), *rest in \
-            kernel_cases(torch, dev, gen):
-        extras = rest[0] if rest else {}
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        mx, rel = errors(out, ref)
-        outs = out if isinstance(out, (tuple, list)) else (out,)
-        ok = all(bool(torch.isfinite(x.float()).all()) for x in outs) \
-            and rel <= TOL[name]
-        kern_t, plain_t = extras.get("timing", (kern, plain))
-        ms = timed(torch, kern_t, 10)
-        plain_ms = timed(torch, plain_t, 3)
-        lib_ms = timed(torch, lib, 10) if lib is not None else None
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        more = "".join(f" {what} {timed(torch, extras[key], 10):.4f} ms"
-                       for key, what in (("alone", "launch alone"),
-                                         ("chain", "library chain"))
-                       if key in extras)
-        if "floor" in extras:
-            more += f" exp floor {extras['floor']:.4f} ms"
-        print(f"[3 kernel] {name} {label}: max_abs {mx:.4g} rel_l2 {rel:.3g} "
-              f"(tol {TOL[name]}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"library {lib_txt}{more} bound {bound_ms:.4f} ms ({bound_by}) "
-              f"| {card}", flush=True)
-        if not ok:
-            raise RuntimeError(f"{name} {label} disagrees with its plain version")
-        r = results.setdefault(name, {
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-        r["max_abs_err"] = max(r["max_abs_err"], mx)
-        del out, ref, outs
-    # the last case's closures hold its inputs (the VAE-sized K8 case: ~2
-    # GiB), which would otherwise count in the later phases' peaks
-    del kern, plain, lib, rest, extras, kern_t, plain_t
-    torch.cuda.empty_cache()
-
+    check_kernels(torch, kernel_cases(torch, dev, gen), results, card, "3 kernel")
     # K8's stage knock-outs (the bisect tool's check and timing)
     from actalker_tpu_torch.tools import resconv_bisect
 
@@ -2433,6 +2930,9 @@ def main() -> int:
     # ---- 13: the evaluation networks and run_eval on the card ----
     phase13(torch, dev, card)
 
+    # ---- 14: DWPose, data tools, pre-encoded batches, windows split, tp ----
+    p14 = phase14(torch, dev, kernels, card, results)
+
     launches = {n: (train_counts[n] if n in ("ssm_scan_bwd", "mha_bwd")
                     else lineage_counts[n] if n == "ssm_scan"
                     else fused_counts[n] if n in FUSED_KERNELS
@@ -2462,7 +2962,11 @@ def main() -> int:
                              "serve_batched": serve_counts[n],
                              "train_real": real_counts[n],
                              "train_sharded": sharded_counts[n],
-                             "serve_split": split_counts[n]},
+                             "serve_split": split_counts[n],
+                             "train_pre_encoded": p14["train_pre_encoded"][n],
+                             "sample_split_windows": p14["sample_split_windows"][n],
+                             "train_tp2_rank0": p14["train_tp2"][n]},
+        **({"tp2_rank": results[n]["tp2_rank"]} if "tp2_rank" in results[n] else {}),
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],

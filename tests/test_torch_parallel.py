@@ -12,8 +12,9 @@ checkpointing.
   the gradient (N: the flat span, each parameter 256-byte aligned); the
   parameters are views of the flat buffer, aligned, and equal on every
   rank.
-* ``train.main`` resumes rank 0's checkpoint on 2 ranks; ``--tp 2`` and a
-  ``--dp`` other than the world size exit.
+* ``train.main`` resumes rank 0's checkpoint on 2 ranks; a ``--tp`` that
+  divides neither the world nor the widths, and a ``--dp`` other than the
+  world size over tp, exit.
 * Rank-split serving: 3 identities over 2 ranks with the SSM gather, each
   equal to the single-process ``generate_latents_batch``, and through the
   low-level ``serving.sample_video_batch(group=)`` (float64; atol
@@ -74,12 +75,16 @@ def test_shard_batch_rows_equal_the_jax_mesh(world):
     jb = jb._replace(audio_mask=np.ones((4, 1, 64, 64), np.float32),
                      exp_mask=np.ones((4, 1, 64, 64), np.float32) * 0.5)
     pb = T.TrainBatch(**{k: torch.from_numpy(np.array(getattr(jb, k)))
-                         for k in T.TrainBatch._fields})
+                         for k in T.TrainBatch._fields
+                         if getattr(jb, k) is not None})
     mesh = JM.make_mesh(devices=jax.devices()[:world], dp=world, tp=1)
     sharded = JM.shard_batch(jb, mesh)
     for r in range(world):
         mine = M.shard_batch(pb, world, r)
         for k in T.TrainBatch._fields:
+            if getattr(sharded, k) is None:        # the pre-encoded fields
+                assert getattr(mine, k) is None, k
+                continue
             shards = {s.device: s.data for s in getattr(sharded, k).addressable_shards}
             want = np.asarray(shards[mesh.devices[r, 0]])
             np.testing.assert_array_equal(getattr(mine, k).numpy(), want, err_msg=k)
@@ -149,10 +154,14 @@ def test_train_main_resumes_rank0_checkpoint_on_two_ranks(tmp_path):
 
 
 def test_train_main_refuses_tp_and_a_wrong_dp(tmp_path):
+    """A --tp that does not divide the world or the widths, and a --dp other
+    than the world size over tp, exit."""
     base = ["--config", CFG, "--micro-model", "--synthetic", "1", "--device",
             "cpu", "--output", str(tmp_path)]
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(SystemExit, match="--tp 2 != the 1 ranks"):
         TR.main(base + ["--tp", "2"])
+    with pytest.raises(SystemExit, match="does not divide the UNet width 32"):
+        TR.main(base + ["--tp", "3"])
     with pytest.raises(SystemExit, match="--dp 2"):
         TR.main(base + ["--dp", "2"])
 

@@ -64,7 +64,8 @@ def test_single_process_commit_matches_jax_make_train_step():
             jax.random.normal(k_off, (2, 1, 1, 1, 1)),
             jax.random.bernoulli(k_drop, 0.5, (2,)))))
         pb = T.TrainBatch(**{k: torch.from_numpy(np.array(getattr(jb, k)))
-                             for k in T.TrainBatch._fields})
+                             for k in T.TrainBatch._fields
+                             if getattr(jb, k) is not None})
         m = trainer.step(pb, draws=draws)
         assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
         assert m["commit"] == (s == 1)

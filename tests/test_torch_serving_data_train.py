@@ -106,11 +106,29 @@ def test_batch_builder_matches_jax(encoders):
     want = JBuilder(jpipe, arcface=j_arc, raw_heads=True, encode_chunk=3)(samples)
     got = BatchBuilder(tpipe, arcface=arc, encode_chunk=3)(samples)
     for k, v in want._asdict().items():
-        if k in got._fields:
+        if v is None:                  # the pre-encoded fields
+            assert getattr(got, k) is None, k
+        else:
             _close(getattr(got, k), v)
-        else:                          # the JAX batch's pre-encoded fields
-            assert v is None, k
     assert got.latents.shape == (2, 2, 8, 8, 4)
+
+
+def test_pre_encoded_batch_builder_matches_jax(encoders):
+    """``raw_heads=False`` (the JAX builder's default): the builder runs the
+    heads too, and the batch carries id / audio / VASA tokens and pose
+    features over every frame, equal to the JAX builder's; no raw field."""
+    jpipe, tpipe, j_arc, arc = encoders
+    samples = _samples()
+    want = JBuilder(jpipe, arcface=j_arc, raw_heads=False, encode_chunk=3)(samples)
+    got = BatchBuilder(tpipe, arcface=arc, encode_chunk=3, raw_heads=False)(samples)
+    for k, v in want._asdict().items():
+        if v is None:
+            assert getattr(got, k) is None, k
+        else:
+            _close(getattr(got, k), v)
+    assert got.audio_tokens.shape == (2, 2, 32, 1024)
+    assert got.vasa_tokens.shape == (2, 2, 1, 1024)
+    assert got.pose_fea.shape[:2] == (2, 2) and got.id_tokens.shape == (2, 1, 1024)
 
 
 # ------------------------------------------------------------- serving

@@ -130,6 +130,60 @@ def commit_rank(rank, world, port, out, max_grad_norm):
     P.dist.destroy_process_group()
 
 
+def tp_main_rank(rank, world, port, out, argv):
+    """``train.main`` under torchrun's environment on the CPU (the argv
+    asks for ``--tp``); saves the records and its layout."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.set_num_threads(2)
+    assert P.init_distributed("cpu")
+    res = TR.main(argv)
+    plan = res["tp_plan"]
+    torch.save({"records": res["records"], "start_step": res["start_step"],
+                "final_step": res["final_step"], "exported": res["exported"],
+                "tp": None if plan is None else (plan.tp.size, plan.tp.rank),
+                "n_sliced": 0 if plan is None else sum(map(len, plan.layouts.values()))},
+               os.path.join(out, f"rank{rank}.pt"))
+    P.dist.destroy_process_group()
+
+
+def tp_commit_rank(rank, world, port, out, dp, tp, max_grad_norm, fused=False):
+    """One commit over the global batches on a (dp, tp) layout, every
+    layer the rules shard sliced (min_size 128, as the JAX package's tests
+    shard the micro model), in the default or the fused-norm configuration.
+    Rank 0 also runs the single-process ``Trainer`` and records, per
+    artifact, the rel L2 of the gathered parameters against its."""
+    from actalker_tpu_torch.models import common, resnet
+    from actalker_tpu_torch.parallel import tensor as TPT
+
+    join(rank, world, port)
+    if fused:      # K7-LN / K7-GN / K8's plain versions, as on the card
+        common.set_norm_impl("fused")
+        resnet.set_resconv_impl("pallas")
+    dp_group, tp_group, i_dp, i_tp = P.mesh_groups(dp, tp)
+    mods = micro_modules()
+    plan = TPT.shard_modules_(mods, TPT.TPGroup(tp_group, tp, i_tp), min_size=128)
+    trainer = T.Trainer(mods, train_config(max_grad_norm), torch.float64,
+                        sharded=True, group=dp_group, tp_plan=plan)
+    recs = run_commit(trainer, global_batches(), i_dp, dp)
+    whole = {n: plan.gather(n, dict(m.named_parameters())) for n, m in mods.items()}
+    res = {"records": recs, "layout": (i_dp, i_tp),
+           "sliced": {n: sorted(v) for n, v in plan.layouts.items()}}
+    if rank == 0:
+        single = micro_modules()
+        res["single_records"] = run_commit(
+            T.Trainer(single, train_config(max_grad_norm), torch.float64),
+            global_batches())
+        res["params_rel"] = {}
+        for name, m in single.items():
+            ref = dict(m.named_parameters())
+            res["params_rel"][name] = rel_l2(
+                torch.cat([whole[name][k].detach().reshape(-1) for k in ref]),
+                torch.cat([p.detach().reshape(-1) for p in ref.values()]))
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    P.dist.destroy_process_group()
+
+
 def train_main_rank(rank, world, port, out, argv):
     """``train.main`` under torchrun's environment on the CPU; records
     whether the parameters it started from equal the latest checkpoint's
@@ -193,22 +247,63 @@ def serve_config():
 SERVE_BOXES = (16, 28, 40)
 
 
-def prepare_identity(pipe, cfg, i, nf=3, px=64):
-    """``prepare_sampling`` for identity i: its own tokens, seed and a face
-    box of side SERVE_BOXES[i] as the audio mask (mode 0)."""
+def identity_inputs(i, nf=3, px=64):
+    """Identity i's ``generate_latents`` / ``prepare_sampling`` inputs: its
+    own tokens and a face box of side SERVE_BOXES[i] as the audio mask
+    (mode 0). Returns (positional arguments before the config, mask)."""
     box = SERVE_BOXES[i]
     rng = np.random.default_rng(30 + i)
     mask = np.zeros((1, 1, px, px), np.float32)
     mask[..., 8:8 + box, 12:12 + box] = 1.0
-    return pipe.prepare_sampling(
-        rng.uniform(-1, 1, (px, px, 3)).astype(np.float32),
-        rng.standard_normal(512).astype(np.float32),
-        rng.standard_normal((nf, 32, 1024)).astype(np.float32),
-        np.zeros((nf, 32, 1024), np.float32),
-        rng.standard_normal((nf, 1, 1024)).astype(np.float32),
-        np.zeros((nf, 1, 1024), np.float32),
-        rng.uniform(0, 1, (nf, px, px, 3)).astype(np.float32), cfg, seed=i,
-        audio_mask=mask)
+    return (rng.uniform(-1, 1, (px, px, 3)).astype(np.float32),
+            rng.standard_normal(512).astype(np.float32),
+            rng.standard_normal((nf, 32, 1024)).astype(np.float32),
+            np.zeros((nf, 32, 1024), np.float32),
+            rng.standard_normal((nf, 1, 1024)).astype(np.float32),
+            np.zeros((nf, 1, 1024), np.float32),
+            rng.uniform(0, 1, (nf, px, px, 3)).astype(np.float32)), mask
+
+
+def prepare_identity(pipe, cfg, i, nf=3, px=64):
+    """``prepare_sampling`` for identity i (``identity_inputs``), seeded
+    with i."""
+    args, mask = identity_inputs(i, nf, px)
+    return pipe.prepare_sampling(*args, cfg, seed=i, audio_mask=mask)
+
+
+def window_config(churn: bool, per_call: int):
+    """Six frames in windows of 2 overlapping by 1 (7 windows a step), the
+    churn on or off, ``per_call`` windows a UNet call."""
+    return dataclasses.replace(serve_config(), frames_per_batch=2, overlap=1,
+                               s_churn=2.0 if churn else 0.0,
+                               windows_per_call=per_call)
+
+
+WINDOW_FRAMES = 6
+
+
+def sample_windows(pipe, cfg, group=None):
+    """Identity 0 through ``generate_latents`` and through the low-level
+    ``sampler.sample_video`` (the UNet's SSM budget as it stands)."""
+    from actalker_tpu_torch.pipeline import sampler
+
+    args, mask = identity_inputs(0, WINDOW_FRAMES)
+    top = pipe.generate_latents(*args, cfg, seed=3, audio_mask=mask, group=group)
+    plan, buffers, ref, gen = pipe.prepare_sampling(*args, cfg, seed=4, audio_mask=mask)
+    low = sampler.sample_video(pipe.m.unet, cfg, plan, buffers, ref, gen,
+                               torch.float64, group=group)
+    return top, low
+
+
+def window_rank(rank, world, port, out, cases):
+    """Each (churn, windows a call) case's ``sample_windows`` with the
+    windows split over the group."""
+    join(rank, world, port)
+    pipe = serve_pipeline()
+    res = {case: sample_windows(pipe, window_config(*case), P.dist.group.WORLD)
+           for case in cases}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    P.dist.destroy_process_group()
 
 
 def sample_all(pipe, cfg, n_identities, group=None):
