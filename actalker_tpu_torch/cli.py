@@ -215,7 +215,8 @@ def generate_frames(cfg: InferenceConfig, args, gate, pipe_cache: Dict,
     VASA), ``generate_latents``, decode. ``detector`` (any ``image -> box``
     callable) replaces the configured one. Returns frames01 (F, H, W, 3) in
     [0, 1], the preprocessed image, the pipeline, the tokens and masks the
-    sampler took, and ``seconds`` by stage."""
+    sampler took, the driving video's VASA crops (or None), and ``seconds``
+    by stage."""
     device = resolve_device(args.device)
     stages = _Stages(device)
     with stages("detect"):
@@ -293,6 +294,7 @@ def generate_frames(cfg: InferenceConfig, args, gate, pipe_cache: Dict,
         # VASA tokens from the driving video (modes 1 / 2): one square crop
         # around the first frame's face -> both towers (the reference's
         # Inference.py:478-505, test_preprocess.py:314-421)
+        crops = None
         if args.mode != 0 and args.video and pipe.m.vasa_expression is not None:
             frames = V.read_frames(args.video, limit=num_frames * cfg.step)
             fh, fw = frames.shape[1:3]
@@ -342,7 +344,8 @@ def generate_frames(cfg: InferenceConfig, args, gate, pipe_cache: Dict,
                 num_frames=num_frames, id_embed=id_embed,
                 tokens=(audio_tok, audio_unc, vasa_tok, vasa_unc),
                 pose_imgs=pose_imgs, masks=masks, latents=latents,
-                landmarks=flm5, seconds=stages.seconds, stages=stages)
+                vasa_crops=crops, landmarks=flm5, seconds=stages.seconds,
+                stages=stages)
 
 
 def write_outputs(cfg: InferenceConfig, args, run: Dict) -> str:

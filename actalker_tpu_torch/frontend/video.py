@@ -1,7 +1,8 @@
 """Video IO on the host, the port's own copy of
 ``actalker_tpu/frontend/video.py``: the native libav runtime
-(``media_native``) first, then the ``ffmpeg`` binary (the reference's
-writer, ``src/utils/ffmpeg_utils.py``); with neither, a clear error."""
+(``media_native``) first; then OpenCV to read and the ``ffmpeg`` binary to
+write (the reference's writer, ``src/utils/ffmpeg_utils.py``); with
+neither, a clear error."""
 from __future__ import annotations
 
 import shutil
@@ -32,32 +33,30 @@ def get_fps(path: str) -> float:
 
 
 def read_frames(path: str, limit: Optional[int] = None) -> np.ndarray:
-    """(F, H, W, 3) uint8 RGB frames, at most ``limit``."""
+    """(F, H, W, 3) uint8 RGB frames, at most ``limit``: the native libav
+    runtime, else OpenCV (BGR -> RGB)."""
     if media_native.lib() is not None:
         return media_native.read_video(path, limit=limit)
-    if not shutil.which("ffmpeg"):
+    try:
+        import cv2
+    except ImportError:
         raise RuntimeError(
-            "no video decoder available: build runtime/libactalker_media.so "
-            "(make -C runtime) or install ffmpeg")
-    probe = subprocess.run(
-        ["ffmpeg", "-nostdin", "-i", path, "-vframes", "1", "-f", "rawvideo",
-         "-pix_fmt", "rgb24", "-"], capture_output=True, check=True)
-    import re
-
-    m = re.search(rb"Stream .*Video: .*?(\d{2,5})x(\d{2,5})", probe.stderr)
-    if m is None:
-        raise RuntimeError(f"no video stream in {path}")
-    w, h = int(m.group(1)), int(m.group(2))
-    cmd = ["ffmpeg", "-nostdin", "-i", path]
-    if limit:
-        cmd += ["-vframes", str(limit)]
-    out = subprocess.run(cmd + ["-f", "rawvideo", "-pix_fmt", "rgb24", "-"],
-                         capture_output=True, check=True).stdout
-    frames = np.frombuffer(out, np.uint8)
-    n = len(frames) // (h * w * 3)
-    if n == 0:
+            "no video decoder available: runtime/libactalker_media.so does "
+            "not load (make -C runtime) and OpenCV (cv2) is not installed"
+        ) from None
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while cap.isOpened():
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame[:, :, ::-1])
+        if limit and len(frames) >= limit:
+            break
+    cap.release()
+    if not frames:
         raise RuntimeError(f"no frames decoded from {path}")
-    return frames[:n * h * w * 3].reshape(n, h, w, 3).copy()
+    return np.stack(frames)
 
 
 def write_video(path: str, frames: np.ndarray, fps: float = 12.5,

@@ -7,11 +7,10 @@
 
 A seeded corpus (``write_corpus``: the JAX tool's toy faces, 6 clips of 40
 frames at ``--size`` px with grain, as ``.npy`` frame stacks with a 16 kHz
-WAV each, since the card's machine has no video decoder) goes through
-``training.train.real_batches``: ``PortraitAudioDataset`` (crop, resize,
-masks, colour augmentation) on ``--workers`` worker processes, then the
-batch builder with the frozen encoders (VAE, whisper, VASA towers; bf16 on
-the card) on ``--device``. A batch is one global batch of ``--batch``
+WAV each) goes through ``training.train.real_batches``:
+``PortraitAudioDataset`` (crop, resize, masks, colour augmentation) on
+``--workers`` worker processes, then the batch builder with the frozen
+encoders (VAE, whisper, VASA towers; bf16 on the card) on ``--device``. A batch is one global batch of ``--batch``
 samples (the reference: one sample a card over 8 cards). The first batch
 is timed alone; then ``--batches`` more. Prints one JSON line: samples/s,
 seconds a batch, the first batch's seconds, and the card's name and power

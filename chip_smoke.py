@@ -56,11 +56,17 @@ Phases, one line each (any failure raises and exits non-zero):
      backward through K5 / K6 against the plain path, by parameter group;
   9. the inference CLI (``cli.generate_frames``, then ``write_outputs``
      where the machine has a video encoder) at full width, 512 px, 14
-     frames, 3 steps, seeded weights, on a written WAV and portrait: mode 0
-     with a fixed face box (the SSM gather: K1's rows must be the derived
-     budgets) and mode 2, each run once to warm up and once counted, stage
-     times printed; then C9, the mode-0 window-step with the gather and
-     with the masked-dense scan (``gather=False``), and C7, the 576 px /
+     frames, 3 steps, seeded weights, on a written WAV and portrait and a
+     written 28-frame driving mp4 (decoded by ``frontend/video.read_frames``:
+     OpenCV where the libav runtime does not load): mode 0 with a fixed
+     face box (the SSM gather of the audio branch: K1's rows must be the
+     derived budgets), mode 1 driven by the video (the gather of the
+     expression branch, budget (0, 0.375)) and mode 2 driven by it, each
+     run once to warm up and once counted, stage times printed; in modes 1
+     and 2 the expression tokens non-zero and finite, and the VASA towers
+     on the video's crops on the card against the same towers in fp32 on
+     the CPU; then C9, the mode-0 and mode-1 window-steps with the gather
+     and with the masked-dense scan (``gather=False``), and C7, the 576 px /
      25-frame window-step in both configurations with its peak memory,
      each beside one UNet forward through the kernels and the plain
      versions; launch counts derived from the model;
@@ -82,16 +88,17 @@ Phases, one line each (any failure raises and exits non-zero):
      budget (seconds, peak memory, K1-K4 launches and K1's gathered rows
      derived from the model, identity 2 of the batch against itself
      alone); then a seeded corpus (four clips of 64 frames at 512 px as
-     ``.npy`` stacks, since the card's machine has no video decoder, a WAV
-     each, boxes and 68-point landmarks, a seeded ArcFace file); C8, the
-     loader's samples/s at 0 and 2 worker processes on a still scene (one
+     ``.npy`` stacks, a WAV each, boxes and 68-point landmarks, a seeded
+     ArcFace file); C8, the loader's samples/s at 0 and 2 worker
+     processes on a still scene (one
      pass of the dataset a sample), the dataset alone and with the batch
      builder, no worker initializing CUDA, then in process on a drifting
      scene with its resamples a sample; C2, ``training.train.main --metadata`` at the configs/train.yaml
      operating point with 2 workers for 4 micro-steps: seconds, loader wait
      and encoder time per micro-step, launches per micro-step derived from
      the model, the first batch's loss through the kernels against the
-     plain versions;
+     plain versions; then one micro-step on the first clip written as an
+     mp4 and read by the default ``VideoFrameReader`` (decode seconds);
  12. data parallelism over NCCL at world 1 (torchrun's environment set by
      the script): ``training.train.main --synthetic 4 --dp 1`` through
      ``parallel.distributed.init_distributed`` at phase 7's operating
@@ -107,7 +114,9 @@ Phases, one line each (any failure raises and exits non-zero):
      the reference's files, each loaded on the card and on the CPU and run
      on the same inputs (rel L2, ms a call); ``run_eval.main --npy --device
      cuda`` over two generated / reference pairs of 27 frames at 512 px as
-     ``.npy`` stacks with WAVs, twice; each metric's seconds on one clip;
+     ``.npy`` stacks with WAVs, twice; ``run_eval.run`` over one pair as
+     mp4s through the default ``VideoClipReader`` (decode seconds); each
+     metric's seconds on one clip;
      ``SyncEvaluator.evaluate_tube`` on a seeded 30-frame tube, card
      against CPU;
  14. DWPose, the data tools, pre-encoded batches, windows over ranks and
@@ -203,11 +212,20 @@ LINEAGE_GRAD_GROUPS = {
 # window of C7
 CLI_BOX = (136.0, 136.0, 375.0, 375.0)
 C9_CAPACITY = 0.375
+# the budget (audio, expression) of each mode the box gates: mode 0 gathers
+# the audio branch, mode 1 the expression branch
+C9_BUDGET = {0: (C9_CAPACITY, 0.0), 1: (0.0, C9_CAPACITY)}
 C7_PX, C7_FRAMES = 576, 25
 # phase 10: the face stack's and the post-passes' networks, the card against
 # the CPU on the same weights and inputs. fp32 on both (TF32 off); cuDNN
 # and the CPU sum each conv in another order, through up to ~60 layers
 FACE_NET_TOL = 1e-4
+# phase 9: the VASA towers on the driving video's crops, the card against
+# the CPU. The CLI casts their weights to bf16, the same values on both
+# sides; both compute in fp32 (the convs cast the weights to the input's
+# dtype; TF32 off), so only the order of each conv's sums differs, through
+# ~50 layers (ResNet-50-GN) and ~20 (ResNet-18-GN): the face networks' case
+VASA_TOL = FACE_NET_TOL
 # a full-width bf16 UNet: kernels and plain versions round activations at
 # different places through ~100 layers
 UNET_TOL = 5e-2
@@ -474,11 +492,12 @@ def kernel_cases(torch, dev, gen, tp=1):
     def rnd(*shape, dtype=bf, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def grouped(dp, hw, bp, rows=None):
+    def grouped(dp, hw, bp, rows=None, tail=33):
         # one SS2D block at d_inner = dp (its tp slice: dp / tp): rank =
         # ceil(d_model / 16), L = h*w tokens (or the gather's ``rows``
-        # slots) + 33 tail tokens (1 id + 32 audio)
-        g, n_tok, rank = 4, (rows or hw * hw) + 33, -(-dp // 2 // 16)
+        # slots) + the tail (1 id + 32 audio tokens; mode 1's gather walks
+        # the expression branch's 1 id + 1 VASA token)
+        g, n_tok, rank = 4, (rows or hw * hw) + tail, -(-dp // 2 // 16)
         dp //= tp
         u = rnd(n_tok, bp, 2 * dp)
         slab = torch.zeros(n_tok, bp, g * 128, device=dev)
@@ -497,8 +516,8 @@ def kernel_cases(torch, dev, gen, tp=1):
         bias = torch.randn(g, dp, generator=gen, device=dev) * 0.5
         return (u, slab, dtw, a, d, bias, rank)
 
-    def k1(dp, hw, rows=None):
-        args = grouped(dp, hw, 56, rows)  # Bp = 4 CFG x 14 frames
+    def k1(dp, hw, rows=None, tail=33):
+        args = grouped(dp, hw, 56, rows, tail)  # Bp = 4 CFG x 14 frames
         dp //= tp
         l, bp, r = args[0].shape[0], 56, args[6]
         # per (token, row, group, channel): the rank + 1 lane projection,
@@ -521,11 +540,14 @@ def kernel_cases(torch, dev, gen, tp=1):
     yield ("ssm_scan_grouped", f"Dp={2560 // tp} L=256+33 Bp=56 (res-16){per}",
            *k1(2560, 16))
     # the gather of modes 0 / 1 (phase 9): a 6/16 budget of each resolution's
-    # tokens (the ~31% face box of C9) + the 33-token tail
-    for dp, hw in ((640, 64), (1280, 32), (2560, 16)) if tp == 1 else ():
-        k = gathered_rows(hw * hw, C9_CAPACITY)
-        yield ("ssm_scan_grouped", f"Dp={dp} L={k}+33 Bp=56 (gathered res-{hw})",
-               *k1(dp, hw, k))
+    # tokens (the ~31% face box of C9) + the tail of the gathered branch:
+    # mode 0's audio (33), mode 1's expression (2)
+    for mode, tail in ((0, 33), (1, 2)) if tp == 1 else ():
+        for dp, hw in ((640, 64), (1280, 32), (2560, 16)):
+            k = gathered_rows(hw * hw, C9_CAPACITY)
+            yield ("ssm_scan_grouped",
+                   f"Dp={dp} L={k}+{tail} Bp=56 (gathered res-{hw}, mode {mode})",
+                   *k1(dp, hw, k, tail))
 
     def k6(dp, hw):
         # training: Bp = 25 frames; gradients through SsmScanGroupedFn.backward
@@ -883,23 +905,79 @@ def write_cli_inputs(out):
     return wav, ref
 
 
+def write_mp4(path, frames, fps=25.0):
+    """(F, H, W, 3) uint8 RGB frames -> ``path`` with OpenCV's MPEG-4 part 2
+    encoder (``mp4v``), which the card's OpenCV writes and reads back
+    through its FFmpeg backend (the libav runtime does not load there)."""
+    import cv2
+    import numpy as np
+
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"OpenCV {cv2.__version__} cannot write {path}")
+    for f in frames:
+        writer.write(np.ascontiguousarray(f[:, :, ::-1]))
+    writer.release()
+
+
+def write_driving_clip(out):
+    """The CLI's driving video under ``out``: 2 * FRAMES frames at 25 fps and
+    PX px of a seeded smooth texture moving 3 px a frame (so the VASA crops
+    differ from frame to frame). Returns the path."""
+    import cv2
+    import numpy as np
+
+    n, shift = 2 * FRAMES, 3
+    width = PX + shift * n
+    rng = np.random.default_rng(10)
+    tex = cv2.resize((rng.random((PX // 16, width // 16, 3)) * 255).astype(np.uint8),
+                     (width, PX), interpolation=cv2.INTER_CUBIC)
+    path = os.path.join(out, "drive.mp4")
+    write_mp4(path, np.stack([tex[:, shift * i:shift * i + PX] for i in range(n)]))
+    return path
+
+
+def vasa_on_cpu(torch, pipe, crops):
+    """The pipeline's VASA towers copied to the CPU in fp32 on ``crops``:
+    (expr, rot) as ``encode_vasa_video`` computes them."""
+    import copy
+
+    x = torch.from_numpy(crops)
+    with torch.no_grad():
+        expr = copy.deepcopy(pipe.m.vasa_expression).cpu().float()(x)
+        rot = copy.deepcopy(pipe.m.vasa_pose).cpu().float()(x * 2.0 - 1.0)["rotation"]
+    return expr, rot
+
+
 def phase9(torch, dev, kernels, card):
-    """The inference CLI at full width (modes 0 and 2), C9 (the mode-0
-    window-step with the SSM gather and masked-dense) and C7 (the 576 px /
-    25-frame window-step, default and fused-norm). Returns the CLI runs'
-    launch counts."""
+    """The inference CLI at full width (mode 0, then modes 1 and 2 driven by
+    a video), C9 (the mode-0 and mode-1 window-steps with the SSM gather
+    and masked-dense) and C7 (the 576 px / 25-frame window-step, default
+    and fused-norm). Returns the CLI runs' launch counts."""
     import argparse
     import dataclasses
 
+    import cv2
     import numpy as np
 
     from actalker_tpu_torch import cli
+    from actalker_tpu_torch.frontend import media_native
     from actalker_tpu_torch.frontend import video as V
     from actalker_tpu_torch.models.conditioning import Conditioning
     from actalker_tpu_torch.pipeline.sampler import SamplerConfig
 
     out = os.path.join(OUT, "cli")
     wav, ref = write_cli_inputs(out)
+    clip = write_driving_clip(out)
+    t0 = time.perf_counter()
+    drive = V.read_frames(clip)
+    decoder = ("the libav runtime" if media_native.lib() is not None
+               else f"OpenCV {cv2.__version__} (the libav runtime does not load)")
+    print(f"[9 cli] driving video {os.path.relpath(clip, ROOT)}: {drive.shape} "
+          f"decoded by {decoder} in {time.perf_counter() - t0:.4f} s", flush=True)
+    if drive.shape != (2 * FRAMES, PX, PX, 3):
+        raise RuntimeError(f"the driving video decodes to {drive.shape}")
     cfg = dataclasses.replace(
         cli.load_config(os.path.join(ROOT, "configs", "inference.yaml")),
         image_size=PX, n_sample_frames=FRAMES, num_inference_steps=STEPS,
@@ -909,7 +987,8 @@ def phase9(torch, dev, kernels, card):
 
     def run_cli(mode):
         args = argparse.Namespace(config="configs/inference.yaml", ref=ref,
-                                  audio=wav, video=None, mode=mode, batch=False,
+                                  audio=wav, video=clip if mode else None,
+                                  mode=mode, batch=False,
                                   random_weights=True, frame_limit=2 * FRAMES,
                                   device="cuda")
         gate = cli.MODE_GATES[mode]
@@ -924,8 +1003,8 @@ def phase9(torch, dev, kernels, card):
         return args, res, counts, sorted(set(rows))
 
     cli_counts = {n: 0 for n in kernels}
-    mode0 = None
-    for mode in (0, 2):
+    runs = {}
+    for mode in (0, 1, 2):
         args, res, counts, rows = run_cli(mode)
         pipe = res["pipe"]
         calls = unet_calls(cfg.sampler_config(cli.MODE_GATES[mode]), res["num_frames"])
@@ -964,50 +1043,51 @@ def phase9(torch, dev, kernels, card):
                                "wrong shape")
         if counts != want:
             raise RuntimeError(f"CLI mode {mode} launches {counts} != derived {want}")
-        if rows != want_rows or (mode == 0) != (caps is not None):
+        if rows != want_rows or (mode in (0, 1)) != (caps is not None):
             raise RuntimeError(f"CLI mode {mode}: K1 rows {rows} != {want_rows} "
                                f"(capacity {caps})")
-        if mode == 0 and caps != (C9_CAPACITY, 0.0):
-            raise RuntimeError(f"C9 box gives capacity {caps}, not {C9_CAPACITY}")
+        if mode in (0, 1) and caps != C9_BUDGET[mode]:
+            raise RuntimeError(f"C9 box gives mode {mode} the capacity {caps}, "
+                               f"not {C9_BUDGET[mode]}")
+        if mode == 1 and (res["masks"]["exp_mask"] is None
+                          or res["masks"]["audio_mask"] is not None):
+            raise RuntimeError("CLI mode 1 must gate the expression branch alone")
+        if mode:
+            # the driving video's expression tokens, and the VASA towers on
+            # its crops: the card (the CLI's bf16 weights, fp32 compute)
+            # against the same weights in fp32 on the CPU
+            tok, crops = res["tokens"][2], res["vasa_crops"]
+            if crops is None or not torch.isfinite(tok).all() or tok.abs().max() == 0:
+                raise RuntimeError(f"CLI mode {mode}: the driving video gave no "
+                                   "expression tokens")
+            expr, rot = pipe.encode_vasa_video(crops, crops)
+            want_e, want_r = vasa_on_cpu(torch, pipe, crops)
+            rel_e = errors(torch.from_numpy(expr), want_e)[1]
+            rel_r = errors(torch.from_numpy(rot), want_r)[1]
+            print(f"[9 cli] mode {mode}: expression tokens {tuple(tok.shape)} max "
+                  f"|tok| {tok.abs().max().item():.4g} | VASA towers on "
+                  f"{crops.shape[0]} crops, card vs CPU fp32 rel_l2 expression "
+                  f"{rel_e:.3g} rotation {rel_r:.3g} (tol {VASA_TOL}) | {card}",
+                  flush=True)
+            if max(rel_e, rel_r) > VASA_TOL:
+                raise RuntimeError(f"CLI mode {mode}: the VASA towers on the card "
+                                   "disagree with the CPU")
         for n in kernels:
             cli_counts[n] += counts[n]
-        if mode == 0:
-            mode0 = res
-    pipe = mode0["pipe"]
-
-    # ---- C9: the mode-0 window-step, gather vs masked-dense ----
-    scfg = SamplerConfig(num_inference_steps=STEPS, frames_per_batch=FRAMES,
-                         windows_per_call=1, gate=(1, 0))
-    calls = unet_calls(scfg, FRAMES)
-    mask = mode0["masks"]["audio_mask"]
-    gen_args = (mode0["pre"].ref_img, mode0["id_embed"], *mode0["tokens"],
-                mode0["pose_imgs"], scfg)
-
-    def window_steps(gather):
-        pipe.gather = gather
-        try:
-            pipe.generate_latents(*gen_args, seed=0, audio_mask=mask)  # warm-up
-            torch.cuda.synchronize()
-            for k in kernels.values():
-                k.launches = 0
-            t0 = time.perf_counter()
-            lat = pipe.generate_latents(*gen_args, seed=0, audio_mask=mask)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / calls, lat, \
-                kernels["ssm_scan_grouped"].launches
-        finally:
-            pipe.gather = True
-
+        runs[mode] = res
+    pipe = runs[0]["pipe"]
     unet = pipe.m.unet
     g9 = torch.Generator(device=dev).manual_seed(9)
 
     def rn(*shape):
         return torch.randn(*shape, generator=g9, device=dev)
 
-    def forward_inputs(b, f, hw, audio_mask, exp_mask, gate_v):
+    def forward_inputs(b, f, hw, audio_mask, exp_mask, gate_a, gate_v):
         """One window-step's UNet inputs (b = 4 CFG, f frames), seeded;
-        ``gate_v`` 0 zeroes the expression tokens (mode 0)."""
-        cond = Conditioning(rn(b * f, 1, 1024).bfloat16(), rn(b * f, 32, 1024).bfloat16(),
+        ``gate_a`` / ``gate_v`` 0 zero the audio / expression tokens (modes
+        1 / 0)."""
+        cond = Conditioning(rn(b * f, 1, 1024).bfloat16(),
+                            (rn(b * f, 32, 1024) * gate_a).bfloat16(),
                             (rn(b * f, 1, 1024) * gate_v).bfloat16(), audio_mask, exp_mask)
         return (rn(b, f, hw, hw, 8).bfloat16(), torch.tensor(0.5, device=dev), cond,
                 rn(b, 3).bfloat16(),
@@ -1028,30 +1108,11 @@ def phase9(torch, dev, kernels, card):
         torch.cuda.synchronize()
         return y_k, errors(y_k, y_p)[1]
 
-    c9 = {}
-    fwd9 = forward_inputs(4, FRAMES, PX // 8, torch.from_numpy(mask).to(dev),
-                          torch.zeros(1, 1, PX, PX, device=dev), 0.0)
-    for name, gather in (("gather", True), ("masked-dense", False)):
-        sec, lat, k1 = window_steps(gather)
-        y, rel = forward_check(fwd9, (C9_CAPACITY, 0.0) if gather else None)
-        c9[name] = (sec, lat, k1, y, rel)
-        print(f"[9 C9] mode 0, face box 31.2% of the image, {name}: seconds per "
-              f"window-step {sec:.4f} s ({calls} UNet calls of 4 CFG x {FRAMES} f x "
-              f"{PX // 8}x{PX // 8}) | K1 launches {k1} (derived "
-              f"{forward_launches(unet)['ssm_scan_grouped'] * calls}) | one forward, "
-              f"kernels vs plain rel_l2 {rel:.3g} (tol {UNET_TOL}) | {card}", flush=True)
-        if k1 != forward_launches(unet)["ssm_scan_grouped"] * calls \
-                or rel > UNET_TOL or not torch.isfinite(lat).all():
-            raise RuntimeError(f"C9 {name}: K1 launches {k1}, rel_l2 {rel}")
-    rel_lat = errors(c9["gather"][1], c9["masked-dense"][1])[1]
-    rel_fwd = errors(c9["gather"][3], c9["masked-dense"][3])[1]
-    print(f"[9 C9] gather vs masked-dense: window-step {c9['gather'][0]:.4f} s vs "
-          f"{c9['masked-dense'][0]:.4f} s ({c9['masked-dense'][0] / c9['gather'][0]:.3f}x) "
-          f"| latents rel_l2 {rel_lat:.3g}, one forward rel_l2 {rel_fwd:.3g} "
-          f"(tol {UNET_TOL}) | {card}", flush=True)
-    if rel_fwd > UNET_TOL or rel_lat > UNET_TOL:
-        raise RuntimeError("the gather disagrees with the masked-dense scan")
-    del c9, gen_args, mode0, fwd9
+    # ---- C9: the mode-0 and mode-1 window-steps, gather vs masked-dense ----
+    for mode in (0, 1):
+        c9_window_step(torch, dev, kernels, card, pipe, runs[mode], mode,
+                       forward_inputs, forward_check)
+    del runs
     torch.cuda.empty_cache()
 
     # ---- C7: the 576 px / 25-frame window-step (S = 5184) ----
@@ -1068,7 +1129,7 @@ def phase9(torch, dev, kernels, card):
             r7.random((C7_FRAMES, C7_PX, C7_PX, 3)).astype(np.float32), scfg7)
     ones7 = torch.ones(1, 1, C7_PX, C7_PX, device=dev)
     hw7 = C7_PX // 8
-    fwd7 = forward_inputs(4, C7_FRAMES, hw7, ones7, ones7, 1.0)
+    fwd7 = forward_inputs(4, C7_FRAMES, hw7, ones7, ones7, 1.0, 1.0)
     for label, ctx in (("default", contextlib.nullcontext), ("fused-norm", fused_norm_config)):
         with ctx():
             pipe.generate_latents(*ins7, seed=0)                     # warm-up
@@ -1104,6 +1165,67 @@ def phase9(torch, dev, kernels, card):
     torch.cuda.empty_cache()
     shutil.rmtree(OUT, ignore_errors=True)
     return cli_counts
+
+
+def c9_window_step(torch, dev, kernels, card, pipe, run, mode, forward_inputs,
+                   forward_check):
+    """C9 of ``mode`` (0: audio, 1: expression), the CLI run ``run``'s
+    window-step with the SSM gather and with the masked-dense scan: seconds,
+    K1's launches, the latents and one seeded UNet forward (kernels vs
+    plain) of each, then the two against each other."""
+    from actalker_tpu_torch.pipeline.sampler import SamplerConfig
+
+    gate = ((1, 0), (0, 1))[mode]
+    branch = ("audio_mask", "exp_mask")[mode]
+    scfg = SamplerConfig(num_inference_steps=STEPS, frames_per_batch=FRAMES,
+                         windows_per_call=1, gate=gate)
+    calls = unet_calls(scfg, FRAMES)
+    mask = run["masks"][branch]
+    gen_args = (run["pre"].ref_img, run["id_embed"], *run["tokens"],
+                run["pose_imgs"], scfg)
+    unet = pipe.m.unet
+    k1_want = forward_launches(unet)["ssm_scan_grouped"] * calls
+
+    def window_steps(gather):
+        pipe.gather = gather
+        try:
+            pipe.generate_latents(*gen_args, seed=0, **{branch: mask})  # warm-up
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            lat = pipe.generate_latents(*gen_args, seed=0, **{branch: mask})
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / calls, lat, \
+                kernels["ssm_scan_grouped"].launches
+        finally:
+            pipe.gather = True
+
+    face = torch.from_numpy(mask).to(dev)
+    empty = torch.zeros(1, 1, PX, PX, device=dev)
+    fwd = forward_inputs(4, FRAMES, PX // 8, *((face, empty) if mode == 0 else (empty, face)),
+                         *gate)
+    c9 = {}
+    for name, gather in (("gather", True), ("masked-dense", False)):
+        sec, lat, k1 = window_steps(gather)
+        y, rel = forward_check(fwd, C9_BUDGET[mode] if gather else None)
+        c9[name] = (sec, lat, y)
+        print(f"[9 C9] mode {mode}, face box 31.2% of the image, {name}: seconds per "
+              f"window-step {sec:.4f} s ({calls} UNet calls of 4 CFG x {FRAMES} f x "
+              f"{PX // 8}x{PX // 8}) | K1 launches {k1} (derived {k1_want}) | one "
+              f"forward, kernels vs plain rel_l2 {rel:.3g} (tol {UNET_TOL}) | {card}",
+              flush=True)
+        if k1 != k1_want or rel > UNET_TOL or not torch.isfinite(lat).all():
+            raise RuntimeError(f"C9 mode {mode} {name}: K1 launches {k1}, rel_l2 {rel}")
+    rel_lat = errors(c9["gather"][1], c9["masked-dense"][1])[1]
+    rel_fwd = errors(c9["gather"][2], c9["masked-dense"][2])[1]
+    print(f"[9 C9] mode {mode}, gather vs masked-dense: window-step "
+          f"{c9['gather'][0]:.4f} s vs {c9['masked-dense'][0]:.4f} s "
+          f"({c9['masked-dense'][0] / c9['gather'][0]:.3f}x) | latents rel_l2 "
+          f"{rel_lat:.3g}, one forward rel_l2 {rel_fwd:.3g} (tol {UNET_TOL}) | {card}",
+          flush=True)
+    if rel_fwd > UNET_TOL or rel_lat > UNET_TOL:
+        raise RuntimeError(f"mode {mode}: the gather disagrees with the masked-dense scan")
 
 
 def face_networks():
@@ -1531,7 +1653,9 @@ def phase11_train(torch, dev, kernels, card, meta, arcface_path):
     operating point on the corpus, LOADER_WORKERS workers, the ``.npy``
     reader; each micro-step's seconds and its wait on the loader; the
     launches per micro-step; one captured batch's loss through the kernels
-    and through the plain versions. Returns the launches of the run."""
+    and through the plain versions; then one micro-step on the first clip
+    as an mp4 through the default reader. Returns the launches of the
+    ``.npy`` run."""
     import numpy as np
 
     from actalker_tpu_torch.training import data as D
@@ -1597,7 +1721,39 @@ def phase11_train(torch, dev, kernels, card, meta, arcface_path):
         raise RuntimeError(f"launches per micro-step {per_step} != {expect}")
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= UNET_TOL * abs(loss_p)):
         raise RuntimeError(f"real batch: loss through the kernels {loss_k} vs plain {loss_p}")
-    return {n: seen["counts"][-1][n] for n in kernels}
+    counts = {n: seen["counts"][-1][n] for n in kernels}
+    del res, mods, batch, draws, seen
+    torch.cuda.empty_cache()
+
+    # the corpus's first clip as an mp4, through the default reader
+    # (frontend/video.read_frames in the loader's workers): one micro-step
+    from actalker_tpu_torch.frontend import video as V
+
+    with open(meta) as f:
+        clip0 = json.load(f)[0]
+    frames = np.load(clip0["video_path"])
+    mp4 = os.path.splitext(clip0["video_path"])[0] + ".mp4"
+    write_mp4(mp4, frames)
+    t0 = time.perf_counter()
+    decoded = V.read_frames(mp4)
+    decode_s = time.perf_counter() - t0
+    meta_mp4 = os.path.join(os.path.dirname(meta), "clips_mp4.json")
+    with open(meta_mp4, "w") as f:
+        json.dump([dict(clip0, video_path=mp4)], f)
+    t0 = time.perf_counter()
+    recs = train.main(["--config", cfg_path, "--metadata", meta_mp4, "--steps", "1",
+                       "--output", os.path.join(OUT, "train_mp4")])["records"]
+    main_s = time.perf_counter() - t0
+    print(f"[11 C2] mp4: {os.path.basename(mp4)} {decoded.shape} decoded by "
+          f"read_frames in {decode_s:.4f} s, mean |mp4 - npy| "
+          f"{np.abs(decoded.astype(np.float32) - frames).mean():.3f} | train.main "
+          f"--metadata with the default VideoFrameReader in {LOADER_WORKERS} workers, "
+          f"1 micro-step: {recs[0]['seconds']:.4f} s, loader wait "
+          f"{recs[0]['load_seconds']:.4f} s, loss {recs[0]['loss']:.6g} | main() "
+          f"{main_s:.1f} s | {card}", flush=True)
+    if decoded.shape != frames.shape or len(recs) != 1 or not np.isfinite(recs[0]["loss"]):
+        raise RuntimeError("training on the mp4 clip: frames or loss wrong")
+    return counts
 
 
 def phase11(torch, dev, kernels, card):
@@ -1910,6 +2066,32 @@ def phase13(torch, dev, card):
             summary[k] is not None and math.isfinite(summary[k]) for k in scores) \
             or any(r.get("sync_note") != "no face track" for r in recs[:-1]):
         raise RuntimeError(f"run_eval: records malformed or not repeatable: {recs}")
+
+    # one pair as mp4s, read by the default VideoClipReader; the audio from
+    # the WAV beside it (the mp4 holds none, and the card's machine has no
+    # decoder for an mp4's audio track)
+    mp4_dirs = {k: os.path.join(out, f"{k}_mp4") for k in ("gen", "ref")}
+    for k, d in mp4_dirs.items():
+        os.makedirs(d, exist_ok=True)
+        write_mp4(os.path.join(d, "clip0.mp4"), np.load(os.path.join(dirs[k], "clip0.npy")))
+        shutil.copy(os.path.join(dirs[k], "clip0.wav"), d)
+    t0 = time.perf_counter()
+    decoded = R.VideoClipReader().frames(os.path.join(mp4_dirs["gen"], "clip0.mp4"))
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs_mp4 = R.run(mp4_dirs["gen"], mp4_dirs["ref"], dirs["img"], weights,
+                     os.path.join(out, "r_mp4.jsonl"), device=dev.type,
+                     audio_reader=R.wav_beside)
+    mp4_s = time.perf_counter() - t0
+    print(f"[13 run_eval] mp4: clip0.mp4 {decoded.shape} decoded by the default "
+          f"VideoClipReader in {decode_s:.4f} s | run_eval.run over 1 mp4 pair, the "
+          f"WAV beside it: {mp4_s:.3f} s | clip record {recs_mp4[0]} (the .npy "
+          f"run's: {recs[0]}) | {card}", flush=True)
+    rec = recs_mp4[0]
+    if len(recs_mp4) != 2 or rec["frames"] != EVAL_FRAMES or not all(
+            rec[k] is not None and math.isfinite(rec[k])
+            for k in ("id_cosine", "psnr", "l1", "lpips")):
+        raise RuntimeError(f"run_eval on the mp4 pair: record malformed: {recs_mp4}")
 
     # each metric's work on one clip pair, warm
     models = R.EvalModels(weights, dev)
@@ -2460,6 +2642,7 @@ def check_kernels(torch, cases, results, card, tag):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     card = card_line()
     print(f"[1 card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | cuda available {torch.cuda.is_available()}",
@@ -2971,6 +3154,7 @@ def main() -> int:
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],
         "library_ms": results[n]["library_ms"]} for n, k in kernels.items()]}))
+    print(f"[total] {time.perf_counter() - start:.1f} s, the build included | {card}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from actalker_tpu_torch.models.vae import VAEConfig
 from actalker_tpu_torch.pipeline.pipeline import PipelineModules
 from actalker_tpu_torch.training import train
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 MICRO = dict(unet_config=UNetConfig().micro(), vae_config=VAEConfig().tiny(),
              dtype=torch.float32)

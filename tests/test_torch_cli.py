@@ -36,6 +36,7 @@ from actalker_tpu.pipeline.pipeline import (
 from actalker_tpu_torch import cli
 from actalker_tpu_torch.frontend import media_native as TM
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 BOX = (14.0, 20.0, 50.0, 62.0)
 

@@ -32,6 +32,7 @@ from actalker_tpu_torch.training import loader as TL
 from actalker_tpu_torch.utils import observability as O
 from tests.torch_loader_fixtures import IndexDataset, StillFrames
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 
 # ------------------------------------------------------------------ flow

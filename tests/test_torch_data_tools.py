@@ -53,6 +53,7 @@ from actalker_tpu_torch.training import train as TR
 from actalker_tpu_torch.training import trainer as T
 from actalker_tpu_torch.utils import observability as O
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 needs_codec = pytest.mark.skipif(TM.lib() is None,

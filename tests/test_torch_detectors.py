@@ -54,6 +54,7 @@ from actalker_tpu_torch.models import teeth as TT
 from actalker_tpu_torch.models import yoloface as TY
 from tests.torch_parity import load, rel_l2, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 YOLO_SMALL = dict(width_multiple=0.25, depth_multiple=0.34)
 RTM_FACE_SMALL = dict(widen=0.25, deepen=0.34, num_keypoints=106,

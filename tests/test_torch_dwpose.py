@@ -34,6 +34,7 @@ from actalker_tpu_torch.models import yolox as TX
 from actalker_tpu_torch.tools import eval_weights
 from tests.torch_parity import load, rel_l2, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 YOLOX_SMALL = dict(depth=0.33, width=0.25)
 RTM_WHOLE_SMALL = dict(widen=0.25, deepen=0.34, gau_hidden=64, gau_s=32)

@@ -46,6 +46,7 @@ from actalker_tpu_torch.models.vasa import HeadPose
 from actalker_tpu_torch.tools.eval_weights import seeded, write_seeded_weights
 from tests.torch_parity import rel_l2, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 needs_codec = pytest.mark.skipif(media_native.lib() is None,
                                  reason="no video encoder on this machine")

@@ -33,6 +33,7 @@ from actalker_tpu_torch.frontend import preprocess as TP
 from actalker_tpu_torch.frontend import video as TV
 from actalker_tpu_torch.frontend import viola_jones as TVJ
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -195,13 +196,32 @@ def test_video_round_trip_equals_jax(tmp_path):
 
 
 def test_video_without_an_encoder_raises(tmp_path, monkeypatch):
+    """Without the runtime and an ffmpeg binary nothing encodes; OpenCV
+    still decodes, as in the JAX package, and only without it too does
+    ``read_frames`` raise."""
+    import sys
+
+    import cv2
+
     monkeypatch.setattr(TM, "lib", lambda: None)
+    monkeypatch.setattr(JM, "lib", lambda: None)
     monkeypatch.setattr(shutil, "which", lambda name: None)
     assert not TV.have_encoder()
     with pytest.raises(RuntimeError, match="no video encoder"):
         TV.write_video(str(tmp_path / "v.mp4"), np.zeros((1, 8, 8, 3), np.uint8))
+    path = str(tmp_path / "c.mp4")
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (32, 16))
+    for i in range(3):
+        frame = np.zeros((16, 32, 3), np.uint8)
+        frame[:, 8 * i:8 * i + 8] = (40, 120, 220)
+        w.write(frame)
+    w.release()
+    got = TV.read_frames(path)
+    assert got.shape == (3, 16, 32, 3)
+    np.testing.assert_array_equal(got, JV.read_frames(path))
+    monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(RuntimeError, match="no video decoder"):
-        TV.read_frames(str(tmp_path / "v.mp4"))
+        TV.read_frames(path)
 
 
 # ------------------------------------------------------------------ faces

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from actalker_tpu.ops import norms as jnorms
 from actalker_tpu.ops import selective_scan_pallas as SP
 from actalker_tpu_torch.ops import norms, selective_scan as ss
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 SMEM_LIMIT = 232448      # bytes of shared memory one H100 block may use
 

@@ -42,6 +42,7 @@ from actalker_tpu_torch.training import train as TR
 from actalker_tpu_torch.training import trainer as T
 from tests import torch_dist_workers as DW
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, "configs", "train.yaml")

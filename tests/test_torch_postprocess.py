@@ -48,6 +48,7 @@ from actalker_tpu_torch.models import teeth as TT
 from actalker_tpu_torch.ops import upfirdn2d as TU
 from tests.torch_parity import load, rel_l2, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 GPEN_SMALL = dict(size=32, style_dim=16, n_mlp=2, channel_multiplier=1)
 # the CLI's GPEN: 512 px crops, narrowed where the file allows it

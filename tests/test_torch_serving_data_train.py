@@ -49,6 +49,7 @@ from actalker_tpu_torch.training.batch_builder import BatchBuilder
 from tests.test_torch_encoders import _seeded
 from tests.test_torch_pipeline import pipes  # noqa: F401 (fixture)
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 
 def _close(port, ref, rtol=1e-4, atol=1e-5):

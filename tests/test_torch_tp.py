@@ -17,6 +17,7 @@ import torch
 from actalker_tpu_torch.models.unet import UNetConfig
 from tests import torch_dist_workers as DW
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 
 def _ranks(tmp_path, fn, world, *args):

@@ -14,6 +14,7 @@ from actalker_tpu_torch.models.unet import UNetConfig
 from actalker_tpu_torch.training import train as TR
 from tests import torch_dist_workers as DW
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "configs", "train.yaml")

@@ -34,6 +34,7 @@ from actalker_tpu_torch.io import weights as TW
 from actalker_tpu_torch.io.weights import to_torch
 from actalker_tpu_torch.models.unet import UNetConfig
 from actalker_tpu_torch.training import ema as E, train as TR, trainer as T
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADS = {"audio_proj": W.export_audio_proj, "id_proj": W.export_id_proj,

@@ -24,6 +24,7 @@ from actalker_tpu.pipeline import sampler as jsampler
 from actalker_tpu_torch.pipeline import sampler as tsampler
 from tests import torch_dist_workers as DW
 from tests.torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from tests.torch_tmp import drop_module_tmp  # noqa: F401 (autouse)
 
 WINDOW_CASES = ((False, 0), (True, 0), (True, 2))
 
