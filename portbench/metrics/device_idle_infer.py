@@ -1,0 +1,2 @@
+"""``device_idle.infer``: see ``_shares.device_idle``."""
+from portbench.metrics._shares import device_idle as read  # noqa: F401

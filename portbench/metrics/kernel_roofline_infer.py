@@ -1,0 +1,2 @@
+"""``kernel_roofline.infer``: see ``_shares.kernel_roofline``."""
+from portbench.metrics._shares import kernel_roofline as read  # noqa: F401
