@@ -25,6 +25,7 @@ from actalker_tpu_torch.models.common import LayerNormF32, Linear
 from actalker_tpu_torch.ops.attention import dot_product_attention
 from actalker_tpu_torch.ops.mha import frame_attention_tokens, mha_tokens
 from actalker_tpu_torch.ops.mlp import geglu_mlp
+from actalker_tpu_torch.utils.observability import spanned
 
 
 def downsample_ip_mask(mask: torch.Tensor, num_queries: int) -> torch.Tensor:
@@ -96,6 +97,7 @@ class Attention(nn.Module):
         if num_adapters:
             self.processor = _IPProcessor(kv_dim, inner, num_adapters)
 
+    @spanned("unet.attention")
     def forward(self, x, context=None, ip_contexts: Optional[List] = None,
                 ip_scales: Optional[Sequence[float]] = None,
                 ip_masks: Optional[List] = None):
@@ -173,6 +175,7 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
                                   Linear(inner, dim)])
 
+    @spanned("unet.ff")
     def forward(self, x):
         p1, p2 = self.net[0].proj, self.net[2]
         if self.tp is None:

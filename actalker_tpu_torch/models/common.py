@@ -10,6 +10,8 @@ tensors keep the JAX layout, (B, F, H, W, C), and images are NHWC; a conv
 hands cuDNN an NCHW view with channels-last strides, so no copy is made
 around it. Parameter names follow the reference's diffusers modules
 (``weight`` / ``bias``), so the reference state dicts load unchanged.
+Each norm call is the leaf span ``unet.norm`` (``utils/observability``),
+under either lowering.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from actalker_tpu_torch.ops.norms import group_norm, layer_norm
+from actalker_tpu_torch.utils.observability import spanned
 
 _NORM_IMPL = os.environ.get("ACTALKER_NORM", "xla")
 if _NORM_IMPL not in ("fused", "xla"):
@@ -160,6 +163,7 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
+    @spanned("unet.norm")
     def forward(self, x):
         if _NORM_IMPL == "fused":
             return group_norm(x, self.weight, self.bias, self.groups, self.eps)
@@ -189,6 +193,7 @@ class LayerNormF32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
+    @spanned("unet.norm")
     def forward(self, x):
         if _NORM_IMPL == "fused":
             return layer_norm(x, self.weight, self.bias, self.eps)

@@ -23,6 +23,7 @@ from actalker_tpu_torch.models.common import (
     Conv2d, GroupNorm32, Linear, TemporalConv, _conv_tp)
 from actalker_tpu_torch.models.embeddings import AlphaBlender
 from actalker_tpu_torch.ops.resconv import gn_silu_conv3x3
+from actalker_tpu_torch.utils.observability import spanned
 
 _RESCONV = os.environ.get("ACTALKER_RESCONV", "xla")
 if _RESCONV not in ("pallas", "xla"):
@@ -119,6 +120,7 @@ class SpatioTemporalResBlock(nn.Module):
         self.time_mixer = AlphaBlender(merge_factor,
                                        switch_spatial_to_temporal_mix)
 
+    @spanned("unet.resnet")
     def forward(self, x, temb, image_only_indicator):
         # x (B, F, H, W, C); temb (B*F, Ct) or None
         b, f, hh, ww, c = x.shape

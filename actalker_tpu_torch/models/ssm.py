@@ -33,6 +33,12 @@ extra tokens unscanned. The JAX package poisons its whole call, which under
 its serving vmap is one identity; here the rows of one identity share its
 mask, so an identity that overflows turns NaN whole and the others of its
 call stay finite.
+
+While spans are on (``utils/observability``), each call counts the (row,
+branch) slots K1 walks (``ssm.k1_slots``) and those active
+(``ssm.k1_active``), and the gather's slots (``ssm.gather_slots``, the
+capacities times the batch) and the selected tokens within them
+(``ssm.gather_selected``).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from actalker_tpu_torch.models.attention_blocks import (
 from actalker_tpu_torch.models.common import LayerNormF32, Linear
 from actalker_tpu_torch.ops.selective_scan import (
     LANES, MASK_LANE, ssm_scan, ssm_scan_arranged, ssm_scan_grouped)
+from actalker_tpu_torch.utils.observability import count, enabled
 
 
 def scan_one_direction(u, delta, A, Bm, Cm, D, bias, reverse: bool, dtype
@@ -261,6 +268,12 @@ class SS2DCondV10(nn.Module):
                 # per batch row, so that rows which keep their budget (the
                 # other identities of a batched serving call) stay finite
                 poison = torch.where(overflow, float("nan"), 0.0).to(dt)
+        if enabled():
+            count("ssm.k1_slots", lt * b * nb)
+            count("ssm.k1_active", active)
+            count("ssm.gather_slots", sum(caps) * b)
+            count("ssm.gather_selected", sum(active[:k, :, bi].sum()
+                                             for bi, k in enumerate(caps)))
         y = sum(outs)
         if poison is not None:
             y = y + poison[None, :, None]

@@ -21,6 +21,7 @@ from actalker_tpu_torch.models.conditioning import Conditioning
 from actalker_tpu_torch.models.embeddings import (
     AlphaBlender, TimestepEmbedding, sinusoidal_embedding)
 from actalker_tpu_torch.models.ssm import SS2DCondV10
+from actalker_tpu_torch.utils.observability import span, spanned
 
 
 class TransformerSpatioTemporal(nn.Module):
@@ -67,6 +68,7 @@ class TransformerSpatioTemporal(nn.Module):
             masks.append(cond.exp_mask)
         return toks, tuple(scales), masks
 
+    @spanned("unet.transformer")
     def forward(self, x, cond: Conditioning, image_only_indicator):
         b, f, hh, ww, c = x.shape
         residual = x
@@ -83,9 +85,10 @@ class TransformerSpatioTemporal(nn.Module):
             h = block(h, context=cond.id_tokens, ip_contexts=ip_toks,
                       ip_scales=ip_scales, ip_masks=ip_masks)
             if self.mamba_blocks is not None:
-                h = self.mamba_blocks[i](
-                    h, cond.id_tokens, cond.audio_tokens, cond.vasa_tokens,
-                    cond.audio_mask, cond.exp_mask)
+                with span("unet.ssm"):
+                    h = self.mamba_blocks[i](
+                        h, cond.id_tokens, cond.audio_tokens, cond.vasa_tokens,
+                        cond.audio_mask, cond.exp_mask)
             mix = self.temporal_transformer_blocks[i](
                 h + emb, f, context=pooled.id_tokens, ip_contexts=pool_toks,
                 ip_scales=ip_scales)

@@ -7,7 +7,11 @@ condition added after conv_in, 3 cross-attention down blocks + 1 plain
 mirrored up path, then GroupNorm / SiLU / conv_out (-> 4). Video tensors are
 (B, F, H, W, C); conditioning comes as one ``Conditioning`` bundle.
 Parameter names are the reference's (diffusers), so ``export_unet`` state
-dicts load with ``strict=True``.
+dicts load with ``strict=True``. Spans (``utils/observability``):
+``unet.forward`` around a call; inside it ``unet.resnet``,
+``unet.transformer``, ``unet.attention``, ``unet.ff``, ``unet.ssm`` (a
+control block with its out-norm and out-projection) and the norms'
+``unet.norm``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from actalker_tpu_torch.models.ssm import SS2DCondV10
 from actalker_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlockSpatioTemporal, CrossAttnUpBlockSpatioTemporal,
     DownBlockSpatioTemporal, UNetMidBlockSpatioTemporal, UpBlockSpatioTemporal)
+from actalker_tpu_torch.utils.observability import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +159,7 @@ class UNetSpatioTemporalCondition(nn.Module):
             if name.endswith(".attn2") and isinstance(mod, Attention):
                 yield mod
 
+    @spanned("unet.forward")
     def forward(self, sample, timestep, cond: Conditioning, added_time_ids,
                 spatial_condition: Optional[torch.Tensor] = None):
         """sample (B, F, H, W, 8); timestep scalar or (B,); added_time_ids

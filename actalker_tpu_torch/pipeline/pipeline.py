@@ -10,7 +10,9 @@ Buffer semantics follow the reference: audio/vasa buffers past
 ``num_frames`` hold the unconditional tokens; masks default to all ones
 (mode 2), and modes 0/1 gate the inactive branch off in the sampler. With a
 face-box mask in modes 0/1, ``_capacity_fracs`` turns the box into the SSM
-blocks' static scan budget (their gather path).
+blocks' static scan budget (their gather path). A request
+(``generate_latents`` / ``generate_latents_batch``) is the span
+``pipeline.generate`` (``utils/observability``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from actalker_tpu_torch.models.whisper import WhisperEncoder
 from actalker_tpu_torch.pipeline.sampler import (
     CondBuffers, SamplerConfig, make_plan, sample_video_batch)
 from actalker_tpu_torch.pipeline.serving import stack_buffers
+from actalker_tpu_torch.utils.observability import spanned
 
 
 def budget_of(fracs):
@@ -267,6 +270,7 @@ class ACTalkerPipeline:
         return plan, buffers, ref_latent, gen
 
     @torch.no_grad()
+    @spanned("pipeline.generate")
     def generate_latents(self, ref_image, id_embed, audio_tokens,
                          uncond_audio_tokens, vasa_tokens, uncond_vasa_tokens,
                          pose_images, config: SamplerConfig, seed: int = 0,
@@ -294,6 +298,7 @@ class ACTalkerPipeline:
             window_group=group)[0]
 
     @torch.no_grad()
+    @spanned("pipeline.generate")
     def generate_latents_batch(self, prepared, config: SamplerConfig,
                                init_noise=None, group=None):
         """Several identities' ``prepare_sampling`` outputs (plan, buffers,

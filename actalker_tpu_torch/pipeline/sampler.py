@@ -13,7 +13,10 @@ The denoise loop is a Python loop over steps. Within a step the windows run
 ``windows_per_call`` at a time (0 = all in one UNet batch; the output is the
 same either way), and the overlap average is an ``index_add_`` plus counts.
 With churn on, each step's noise is drawn for all its windows at once, so
-the chunking does not change it.
+the chunking does not change it. Spans (``utils/observability``):
+``sampler.step`` a denoise step, ``sampler.window`` a UNet call's group of
+windows from its input stacking through its ``index_add_``, and the
+counter ``sampler.window_steps`` (identities x windows a UNet call).
 
 ``sample_video(..., group=)`` splits each step's windows over the ranks of
 a process group (the JAX sampler's ``window_sharding``: the windows of a
@@ -41,6 +44,7 @@ import torch
 from actalker_tpu_torch.diffusion import noise as noise_lib
 from actalker_tpu_torch.diffusion import scheduler as sch
 from actalker_tpu_torch.models.conditioning import Conditioning
+from actalker_tpu_torch.utils.observability import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,42 +253,46 @@ def sample_video_batch(unet, cfg: SamplerConfig, plan: SamplerPlan,
                          cfg.motion_bucket_id_exp], dtype=dtype, device=dev)
 
     for i in range(len(plan.timesteps)):
-        sigma, sigma_next = float(plan.sigmas[i]), float(plan.sigmas[i + 1])
-        g1, g2, g3 = (float(plan.guidance1[i]), float(plan.guidance2[i]),
-                      float(plan.guidance3[i]))
-        gamma = float(plan.gammas[i])
-        t_cont = torch.tensor(float(plan.timesteps[i]), dtype=dtype, device=dev)
-        w_idx = torch.as_tensor(plan.window_idx[i], device=dev)
-        churn_all = None
-        if gamma > 0:            # the step's churn for every window
-            churn_all = torch.stack([_churn_noise(cfg, (n_win, fpb, h, w, 4), g, dev)
-                                     for g in gens])
-        summed = torch.zeros_like(latents)
-        for w0 in range(mine.start, mine.stop, per_call):
-            w1 = min(w0 + per_call, mine.stop)
-            idx = w_idx[w0:w1]                              # (nw, fpb)
-            nw = idx.shape[0]
-            lat = latents[:, idx]                           # (I, nw, fpb, h, w, 4)
-            scaled = sch.scale_model_input(lat, sigma).to(dtype)
-            img = buffers.image_latents[:, idx].to(dtype)
-            inp = torch.cat([
-                scaled[:, :, None].expand(n_id, nw, 4, fpb, h, w, 4),
-                torch.stack([torch.zeros_like(img), img, img, img], dim=2),
-            ], dim=-1).reshape(n_id * nw * 4, fpb, h, w, 8)
-            pose = buffers.pose_fea[:, idx].to(dtype)[:, :, None].expand(
-                n_id, nw, 4, fpb, h, w, -1).reshape(n_id * nw * 4, fpb, h, w, -1)
-            cond = _cfg_conditioning(buffers, idx, cfg, dtype)
-            pred = unet(inp, t_cont, cond, tids.expand(n_id * nw * 4, 3), pose)
-            pred = pred.float().reshape(n_id, nw, 4, fpb, h, w, 4)
-            u, a, b, c = pred.unbind(dim=2)
-            noise_pred = u + g1 * (a - u) + g2 * (b - a) + g3 * (c - b)
-            out = sch.step(lat, noise_pred, sigma, sigma_next,
-                           cfg.scheduler.prediction_type, gamma=gamma,
-                           noise=None if churn_all is None else churn_all[:, w0:w1],
-                           s_noise=cfg.s_noise)
-            summed.index_add_(1, idx.reshape(-1), out.reshape(n_id, nw * fpb, h, w, 4))
-        if window_group is not None:
-            torch.distributed.all_reduce(summed, group=window_group)
-        counts = torch.bincount(w_idx.reshape(-1), minlength=buf).to(summed.dtype)
-        latents = summed / counts[:, None, None, None]
+        with span("sampler.step"):
+            sigma, sigma_next = float(plan.sigmas[i]), float(plan.sigmas[i + 1])
+            g1, g2, g3 = (float(plan.guidance1[i]), float(plan.guidance2[i]),
+                          float(plan.guidance3[i]))
+            gamma = float(plan.gammas[i])
+            t_cont = torch.tensor(float(plan.timesteps[i]), dtype=dtype, device=dev)
+            w_idx = torch.as_tensor(plan.window_idx[i], device=dev)
+            churn_all = None
+            if gamma > 0:            # the step's churn for every window
+                churn_all = torch.stack([
+                    _churn_noise(cfg, (n_win, fpb, h, w, 4), g, dev) for g in gens])
+            summed = torch.zeros_like(latents)
+            for w0 in range(mine.start, mine.stop, per_call):
+                w1 = min(w0 + per_call, mine.stop)
+                idx = w_idx[w0:w1]                          # (nw, fpb)
+                nw = idx.shape[0]
+                with span("sampler.window"):
+                    count("sampler.window_steps", n_id * nw)
+                    lat = latents[:, idx]                   # (I, nw, fpb, h, w, 4)
+                    scaled = sch.scale_model_input(lat, sigma).to(dtype)
+                    img = buffers.image_latents[:, idx].to(dtype)
+                    inp = torch.cat([
+                        scaled[:, :, None].expand(n_id, nw, 4, fpb, h, w, 4),
+                        torch.stack([torch.zeros_like(img), img, img, img], dim=2),
+                    ], dim=-1).reshape(n_id * nw * 4, fpb, h, w, 8)
+                    pose = buffers.pose_fea[:, idx].to(dtype)[:, :, None].expand(
+                        n_id, nw, 4, fpb, h, w, -1).reshape(n_id * nw * 4, fpb, h, w, -1)
+                    cond = _cfg_conditioning(buffers, idx, cfg, dtype)
+                    pred = unet(inp, t_cont, cond, tids.expand(n_id * nw * 4, 3), pose)
+                    pred = pred.float().reshape(n_id, nw, 4, fpb, h, w, 4)
+                    u, a, b, c = pred.unbind(dim=2)
+                    noise_pred = u + g1 * (a - u) + g2 * (b - a) + g3 * (c - b)
+                    out = sch.step(lat, noise_pred, sigma, sigma_next,
+                                   cfg.scheduler.prediction_type, gamma=gamma,
+                                   noise=None if churn_all is None else churn_all[:, w0:w1],
+                                   s_noise=cfg.s_noise)
+                    summed.index_add_(1, idx.reshape(-1),
+                                      out.reshape(n_id, nw * fpb, h, w, 4))
+            if window_group is not None:
+                torch.distributed.all_reduce(summed, group=window_group)
+            counts = torch.bincount(w_idx.reshape(-1), minlength=buf).to(summed.dtype)
+            latents = summed / counts[:, None, None, None]
     return latents

@@ -23,14 +23,20 @@ MambaUPNet at its published dims on (8, 8, 8, 512) fp32; one window, and
 one report, per module.
 Prints the card line, the wall time of the window, the device busy time
 and idle share, and the device time per group of kernels, under each of
-the port's kernels its device time per launch by launch grid; a JSON line
-for each window. Needs a CUDA card.
+the port's kernels its device time per launch by launch grid; then the
+program's spans (``utils/observability``): per span name its count, its
+device ms from start event to end event (``span_table``), and the device
+ms of the kernels, memcpys and memsets it launched, by innermost span and
+by every span open at the launch; a JSON line for each window. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,7 +44,7 @@ import time
 
 import torch
 
-from actalker_tpu_torch.utils.observability import device_trace
+from actalker_tpu_torch.utils import observability
 
 # (group, name substrings), first match wins: the port's own kernels first
 GROUPS = (
@@ -79,6 +85,57 @@ def short_name(name: str) -> str:
     return name.split("(", 1)[0]
 
 
+# a program span's name (``unet.norm``), not torch's own ranges
+# (``Optimizer.step#AdamW.step``)
+PROGRAM_SPAN = re.compile(r"^[a-z_]+(\.[a-z_]+)+$")
+
+
+def span_kernel_times(events):
+    """{span: [ms as the innermost span, ms inside it]} of the device's
+    kernels, memcpys and memsets; "(no span)" takes what no span holds. A
+    device event's ``args.correlation`` leads to its ``cuda_runtime``
+    launch, and the program spans open on the launch's thread take it; on
+    a thread with none open (autograd's device thread in a backward) the
+    spans open on the thread whose innermost span began last."""
+    launch = {}
+    spans, dev = [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat == "cuda_runtime":
+            c = e.get("args", {}).get("correlation")
+            if c is not None:
+                launch[c] = (float(e["ts"]), e.get("tid"))
+        elif cat == "user_annotation" and PROGRAM_SPAN.match(e["name"]):
+            t0 = float(e["ts"])
+            spans.append((t0, t0 + float(e.get("dur", 0.0)), e.get("tid"), e["name"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev.append((e.get("args", {}).get("correlation"), e["dur"] / 1e3))
+    at = sorted((launch[c] + (ms,)) for c, ms in dev if c in launch)
+    spans.sort()
+    starts = [s[0] for s in spans]
+    stacks, out, i = {}, {}, 0
+    for ts, tid, ms in at:
+        j = bisect.bisect_right(starts, ts)
+        for t0, t1, stid, name in spans[i:j]:
+            st = stacks.setdefault(stid, [])
+            while st and st[-1][1] <= t0:
+                st.pop()
+            st.append((t0, t1, name))
+        i = j
+        for st in stacks.values():
+            while st and st[-1][1] <= ts:
+                st.pop()
+        chain = stacks.get(tid) or max(
+            (st for st in stacks.values() if st), key=lambda st: st[-1][0],
+            default=[(0.0, 0.0, "(no span)")])
+        out.setdefault(chain[-1][2], [0.0, 0.0])[0] += ms
+        for name in {s[2] for s in chain}:
+            out.setdefault(name, [0.0, 0.0])[1] += ms
+    return out
+
+
 def device_times(trace_path: str):
     """(busy ms, {group: ms}, launches) from a chrome trace: the sum of
     kernel, memcpy and memset durations; ``launches`` maps each of the
@@ -112,7 +169,8 @@ class Window:
         self.tmp = tmp
 
     def start(self):
-        self.trace = device_trace(self.tmp, torch.device("cuda"))
+        observability.reset()
+        self.trace = observability.device_trace(self.tmp, torch.device("cuda"))
         self.prof = self.trace.__enter__()
         self.t0 = time.perf_counter()
 
@@ -121,6 +179,9 @@ class Window:
         self.wall = time.perf_counter() - self.t0
         self.trace.__exit__(None, None, None)
         self.busy, self.groups, self.launches = device_times(self.prof.trace_path)
+        with open(self.prof.trace_path) as f:
+            self.by_span = span_kernel_times(json.load(f)["traceEvents"])
+        self.spans = observability.span_table()
 
 
 def profile_train(tmp: str) -> Window:
@@ -240,10 +301,18 @@ def main(argv=None):
                 if kg == g:
                     print(f"    {name} grid {grid}: {k} launches, "
                           f"{kms / k:.4f} ms each")
+        rows = win.spans["spans"]
+        print(f"  {'span':24s} {'n':>6s} {'events ms':>11s} {'innermost ms':>13s} "
+              f"{'inside ms':>11s}")
+        for name in sorted(set(rows) | set(win.by_span)):
+            n, ev = (rows[name]["n"], rows[name]["device_ms"]) if name in rows else (0, 0.0)
+            inner, inside = win.by_span.get(name, (0.0, 0.0))
+            print(f"  {name:24s} {n:6d} {ev:11.2f} {inner:13.2f} {inside:11.2f}")
         print(json.dumps({"what": args.what, "module": label or None,
                           "norm": args.norm, "resconv": args.resconv,
                           "card": card, "wall_ms": wall_ms, "busy_ms": busy,
-                          "groups_ms": groups}))
+                          "groups_ms": groups, "spans": win.spans,
+                          "spans_kernel_ms": win.by_span}))
 
 
 if __name__ == "__main__":

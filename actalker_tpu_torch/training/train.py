@@ -32,7 +32,8 @@ divide every UNet width. With
 worker processes (0: synchronous); clips are decoded by
 ``frontend/video.read_frames`` unless ``main`` is handed another
 ``frame_reader`` (``training/data.py::NpyFrameReader`` reads ``.npy``
-frame stacks on a machine without a video decoder).
+frame stacks on a machine without a video decoder). The wait for a
+batch is the span ``train.load`` (``utils/observability``).
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ from actalker_tpu_torch.training.batch_builder import BatchBuilder
 from actalker_tpu_torch.training.ema import ema_init, ema_step
 from actalker_tpu_torch.training.loader import prefetch_batches
 from actalker_tpu_torch.training.trainer import TrainBatch, TrainConfig, Trainer
-from actalker_tpu_torch.utils.observability import MetricsEmitter
+from actalker_tpu_torch.utils.observability import MetricsEmitter, span
 
 # the reference's trainable artifacts (the adapter to_k_ip / to_v_ip rows
 # live inside the UNet and export separately)
@@ -360,7 +361,6 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
 
     records = []
     final_step = start_step
-    t_start = time.perf_counter()
     if observe is not None:
         observe(trainer, None)
     emitter = MetricsEmitter(os.path.join(out_dir, "metrics.jsonl")
@@ -374,7 +374,8 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
     try:
         for step in range(start_step, min(start_step + n_steps, max_steps)):
             t_batch = time.perf_counter()
-            batch = next(batches)
+            with span("train.load"):
+                batch = next(batches)
             t0 = time.perf_counter()
             m = trainer.step(batch, generator=gen)
             if ema is not None:
@@ -389,9 +390,7 @@ def _run(args, clips, device, sharded, observe, frame_reader) -> Dict:
                    "seconds": time.perf_counter() - t0,
                    # blocked on the loader, and in the frozen encoders
                    "load_seconds": t0 - t_batch - (builder.seconds if builder else 0.0),
-                   "encode_seconds": builder.seconds if builder else 0.0,
-                   "sec_per_step": (time.perf_counter() - t_start)
-                   / (step - start_step + 1)}
+                   "encode_seconds": builder.seconds if builder else 0.0}
             records.append(emitter.emit(**rec))
             if observe is not None:
                 observe(trainer, rec)

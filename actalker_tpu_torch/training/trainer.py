@@ -21,6 +21,14 @@ every k-th micro-step. Parameters (fp32 masters) and optimizer state are
 fp32; the UNet computes in ``dtype``. ``ShardedOptimizer`` is the same
 optimizer under ZeRO-2 over a process group (the reference's DeepSpeed
 ``ds_zero2_8gpu.yaml``; the JAX package's ``shard_opt_state``).
+
+Spans (``utils/observability``): ``trainer.micro_step`` (``Trainer.step``)
+holds ``trainer.forward`` (the heads and the loss), ``trainer.backward``
+and ``trainer.optimizer``; ``trainer.commit``, inside the last, covers a
+commit alone (divide, clip, AdamW, the gradients cleared), in both
+optimizers. The recomputed forwards of checkpointed blocks run on
+autograd's device thread in a CUDA backward, so there their spans have no
+parent.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn as nn
 
 from actalker_tpu_torch.models.conditioning import Conditioning
 from actalker_tpu_torch.parallel.mesh import ALIGN_BYTES, BUCKET_ELEMS, ZeroLayout
+from actalker_tpu_torch.utils.observability import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +226,12 @@ class Optimizer:
         if self.mini_step < self.k:
             return False, None
         self.mini_step = 0
+        return True, self._commit()
+
+    @spanned("trainer.commit")
+    def _commit(self) -> torch.Tensor:
+        """The commit: the mean gradient clipped, AdamW, the gradients
+        cleared; returns the global norm."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -231,7 +246,7 @@ class Optimizer:
         torch._foreach_mul_(grads, torch.where(clip, self.max_norm, 1.0))
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
-        return True, norm
+        return norm
 
 
 class ShardedOptimizer:
@@ -370,6 +385,12 @@ class ShardedOptimizer:
         if self.mini_step < self.k:
             return False, None
         self.mini_step = 0
+        return True, self._commit()
+
+    @spanned("trainer.commit")
+    def _commit(self) -> torch.Tensor:
+        """The commit: the mean gradient clipped, AdamW, the gradients
+        cleared; returns the global norm."""
         g = self.grad
         if self.k > 1:
             g.div_(float(self.k))
@@ -390,7 +411,7 @@ class ShardedOptimizer:
         g.mul_(torch.where(clip, self.max_norm, 1.0))
         self._adamw()
         g.zero_()
-        return True, norm
+        return norm
 
     @torch.no_grad()
     def _adamw(self) -> None:
@@ -447,14 +468,18 @@ class Trainer:
             self.world, self.rank = 1, 0
             self.optimizer = make_optimizer(modules, cfg)
 
+    @spanned("trainer.micro_step")
     def step(self, batch: TrainBatch, draws: Optional[LossDraws] = None,
              generator: Optional[torch.Generator] = None) -> Dict:
         if draws is None:
             draws = sample_draws(batch, self.cfg, generator, self.world, self.rank)
-        loss, metrics = diffusion_loss(self.modules, batch, self.cfg, draws,
-                                       generator, self.dtype)
-        loss.backward()
-        metrics["commit"], metrics["grad_norm"] = self.optimizer.step()
+        with span("trainer.forward"):
+            loss, metrics = diffusion_loss(self.modules, batch, self.cfg, draws,
+                                           generator, self.dtype)
+        with span("trainer.backward"):
+            loss.backward()
+        with span("trainer.optimizer"):
+            metrics["commit"], metrics["grad_norm"] = self.optimizer.step()
         if self.sharded:
             total = metrics["loss"].reshape(1).clone()
             dist.all_reduce(total, group=self.group)
