@@ -16,6 +16,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+// x rounded to T, as a float (x itself for T = float)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// One element of a norm's apply step in the default lowering's function:
+// x * a + b as an elementwise mul then an elementwise add in T, each
+// computed in fp32 and rounded to T (a and b already rounded to T). No
+// contraction into an FMA, so fp32 I/O rounds the product too; the caller
+// rounds the sum to T when it stores it.
+template <typename T>
+__device__ __forceinline__ float mul_add_rounded(float x, float a, float b) {
+  return __fadd_rn(round_to<T>(__fmul_rn(x, a)), b);
+}
+
 // two floats -> packed bf16x2 (lo in the low half), as mma fragments want
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -36,6 +36,14 @@
 //        statistics pass, so the part of x still in L2 is read first.
 // Groups are indexed per channel (c / (C / G)), never as whole vectors:
 // C / G is 10 at C = 320 and 4 at C = 128, so a vector may straddle groups.
+//
+// The `_io` entries compute the default lowering's function instead
+// (models/common.py's plain GroupNorm32; compile-time kIo): the same
+// statistics, the fp32 a = rsqrt(var + eps) * gamma and b = beta - mu * a
+// as two rounded operations (no FMA), both rounded to the I/O dtype T,
+// then y = round_T(round_T(x * a) + b), what an elementwise mul and an
+// elementwise add in T give. Only b's rounding and the apply step differ,
+// on both paths.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -78,6 +86,28 @@ __host__ __device__ inline ClusterGeo cluster_geo(int sc, int cg, int box_rows,
   g.bar = g.ab + sc * 8;
   g.total = g.bar + 8;
   return g;
+}
+
+// the apply step's coefficient: the fp32 a or b, or (kIo) it rounded to T
+template <typename T, bool kIo>
+__device__ __forceinline__ float coef(float v) {
+  if constexpr (kIo) return akt::round_to<T>(v);
+  else return v;
+}
+
+// b = beta - mu * a from the fp32 a: one FMA, or (kIo) a rounded product
+// then a rounded difference, the plain branch's two operations
+template <bool kIo>
+__device__ __forceinline__ float shift(float beta, float mu, float a) {
+  if constexpr (kIo) return __fsub_rn(beta, __fmul_rn(mu, a));
+  else return beta - mu * a;
+}
+
+// the apply step's x * a + b: one fp32 FMA, or (kIo) a mul and an add in T
+template <typename T, bool kIo>
+__device__ __forceinline__ float affine(float x, float a, float b) {
+  if constexpr (kIo) return akt::mul_add_rounded<T>(x, a, b);
+  else return fmaf(x, a, b);
 }
 
 __device__ __forceinline__ float2 add2(float2 a, float2 b) {
@@ -136,7 +166,7 @@ __device__ __forceinline__ void reduce_lanes(float2* red, int width, int rl) {
 
 // ---- two-pass: 1. statistics (+ the last block's finalize) -----------------
 
-template <typename T>
+template <typename T, bool kIo>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, float2* __restrict__ part,
@@ -198,14 +228,14 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     const float2 mi = sh[stripes * G + c / cg];
     const float ac = mi.y * gamma[c];
     a[(size_t)n * C + c] = ac;
-    b[(size_t)n * C + c] = beta[c] - mi.x * ac;
+    b[(size_t)n * C + c] = shift<kIo>(beta[c], mi.x, ac);
   }
   if (tid == 0) count[n] = 0u;   // ready for the next launch
 }
 
 // ---- two-pass: 2. apply ---------------------------------------------------
 
-template <typename T>
+template <typename T, bool kIo>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                 const float* __restrict__ b, T* __restrict__ y, int M, int C,
@@ -224,6 +254,11 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
       akt::load_vec(a + (size_t)n * C + v * V + j, av + j);
       akt::load_vec(b + (size_t)n * C + v * V + j, bv + j);
     }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      av[j] = coef<T, kIo>(av[j]);
+      bv[j] = coef<T, kIo>(bv[j]);
+    }
     const T* xp = x + base + v * V;
     T* yp = y + base + v * V;
     int r = r0 + tr;
@@ -234,7 +269,7 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
 #pragma unroll
-        for (int j = 0; j < V; ++j) f[k][j] = fmaf(f[k][j], av[j], bv[j]);
+        for (int j = 0; j < V; ++j) f[k][j] = affine<T, kIo>(f[k][j], av[j], bv[j]);
         akt::store_vec(yp + (size_t)(r + k * rl) * C, f[k]);
       }
     }
@@ -242,7 +277,7 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
       float f[V];
       akt::load_vec(xp + (size_t)r * C, f);
 #pragma unroll
-      for (int j = 0; j < V; ++j) f[j] = fmaf(f[j], av[j], bv[j]);
+      for (int j = 0; j < V; ++j) f[j] = affine<T, kIo>(f[j], av[j], bv[j]);
       akt::store_vec(yp + (size_t)r * C, f);
     }
   }
@@ -279,7 +314,7 @@ __device__ __forceinline__ float2 ld_cluster(const float2* p, uint32_t rank) {
 
 // grid (P * slices, N), clusters of P along x: cluster rank r of slice s of
 // image n holds rows [r * rows_cta, +rows_cta) of channels [s * sc, +sc)
-template <typename T>
+template <typename T, bool kIo>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -344,7 +379,7 @@ gn_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
   for (int c = tid; c < sc; c += blockDim.x) {
     const float2 mi = red[c / cg];
     const float ac = mi.y * gamma[c0 + c];
-    ab[c] = make_float2(ac, beta[c0 + c] - mi.x * ac);
+    ab[c] = make_float2(ac, shift<kIo>(beta[c0 + c], mi.x, ac));
   }
   __syncthreads();
 
@@ -354,15 +389,15 @@ gn_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float2 t = ab[v * V + j];
-      av[j] = t.x;
-      bv[j] = t.y;
+      av[j] = coef<T, kIo>(t.x);
+      bv[j] = coef<T, kIo>(t.y);
     }
     T* yp = y + ((size_t)n * M + r0) * C + c0 + v * V;
     for (int r = tr; r < valid; r += rl) {
       float f[V];
       akt::load_vec(xs + (size_t)r * sc + v * V, f);
 #pragma unroll
-      for (int j = 0; j < V; ++j) f[j] = fmaf(f[j], av[j], bv[j]);
+      for (int j = 0; j < V; ++j) f[j] = affine<T, kIo>(f[j], av[j], bv[j]);
       akt::store_vec(yp + (size_t)r * C, f);
     }
   }
@@ -391,36 +426,36 @@ bool stats_ok(int C, int G, int rows, int threads, int smem) {
          smem == stats_smem(C, G, threads, V) && smem <= kSmemLimit;
 }
 
-template <typename T>
+template <typename T, bool kIo>
 int stats(const void* x, const void* gamma, const void* beta, void* part,
           void* count, void* a, void* b, int N, int M, int C, int G, int rows,
           int threads, int smem, float eps, cudaStream_t s) {
   if (!stats_ok<T>(C, G, rows, threads, smem)) return (int)cudaErrorInvalidValue;
   static int limit = 48 * 1024;
-  const int e = ensure_smem((const void*)gn_stats_kernel<T>, smem, &limit);
+  const int e = ensure_smem((const void*)gn_stats_kernel<T, kIo>, smem, &limit);
   if (e) return e;
-  gn_stats_kernel<T><<<dim3((M + rows - 1) / rows, N), threads, smem, s>>>(
+  gn_stats_kernel<T, kIo><<<dim3((M + rows - 1) / rows, N), threads, smem, s>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (float2*)part,
       (unsigned*)count, (float*)a, (float*)b, M, C, G, rows, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kIo>
 int two_pass(const void* x, const void* gamma, const void* beta, void* part,
              void* count, void* a, void* b, void* y, int N, int M, int C, int G,
              int rows, int apply_rows, int threads, int smem, float eps,
              void* stream) {
   if (apply_rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = stats<T>(x, gamma, beta, part, count, a, b, N, M, C, G, rows,
+  const int err = stats<T, kIo>(x, gamma, beta, part, count, a, b, N, M, C, G, rows,
                            threads, smem, eps, s);
   if (err) return err;
-  gn_apply_kernel<T><<<dim3((M + apply_rows - 1) / apply_rows, N), threads, 0, s>>>(
+  gn_apply_kernel<T, kIo><<<dim3((M + apply_rows - 1) / apply_rows, N), threads, 0, s>>>(
       (const T*)x, (const float*)a, (const float*)b, (T*)y, M, C, apply_rows);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kIo>
 int cluster_launch(const void* x, const void* gamma, const void* beta, void* y, int N,
             int M, int C, int G, int sc, int P, int rows_cta, int box_rows,
             int nbox, int threads, int smem, float eps, void* stream) {
@@ -437,7 +472,7 @@ int cluster_launch(const void* x, const void* gamma, const void* beta, void* y, 
       smem <= kSmemLimit;
   if (!ok) return (int)cudaErrorInvalidValue;
   static int limit = 48 * 1024;
-  const int e0 = ensure_smem((const void*)gn_cluster_kernel<T>, smem, &limit);
+  const int e0 = ensure_smem((const void*)gn_cluster_kernel<T, kIo>, smem, &limit);
   if (e0) return e0;
   CUtensorMap map;
   const unsigned long long dims[3] = {(unsigned long long)C, (unsigned long long)M,
@@ -461,7 +496,7 @@ int cluster_launch(const void* x, const void* gamma, const void* beta, void* y, 
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T>, map,
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T, kIo>, map,
                                            (const float*)gamma, (const float*)beta,
                                            (T*)y, M, C, G, sc, rows_cta, box_rows,
                                            nbox, eps);
@@ -479,35 +514,41 @@ int cluster_launch(const void* x, const void* gamma, const void* beta, void* y, 
                       void* part, void* count, void* a, void* b, int N, int M,  \
                       int C, int G, int rows, int threads, int smem, float eps, \
                       void* stream) {                                           \
-    return stats<T>(x, gamma, beta, part, count, a, b, N, M, C, G, rows,        \
-                    threads, smem, eps, (cudaStream_t)stream);                  \
+    return stats<T, false>(x, gamma, beta, part, count, a, b, N, M, C, G, rows, \
+                           threads, smem, eps, (cudaStream_t)stream);           \
   }
 GN_STATS_ENTRY(gn_stats_bf16, __nv_bfloat16)
 GN_STATS_ENTRY(gn_stats_f32, float)
 
 // y (N, M, C) = group_norm(x) on the two-pass plan: the statistics launch
-// above, then the apply over blocks of apply_rows rows
-#define GN_TWO_PASS_ENTRY(NAME, T)                                              \
+// above, then the apply over blocks of apply_rows rows; the `_io` entries
+// apply the default lowering's rounded affine
+#define GN_TWO_PASS_ENTRY(NAME, T, IO)                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta,       \
                       void* part, void* count, void* a, void* b, void* y,       \
                       int N, int M, int C, int G, int rows, int apply_rows,     \
                       int threads, int smem, float eps, void* stream) {         \
-    return two_pass<T>(x, gamma, beta, part, count, a, b, y, N, M, C, G, rows,  \
-                       apply_rows, threads, smem, eps, stream);                 \
+    return two_pass<T, IO>(x, gamma, beta, part, count, a, b, y, N, M, C, G,    \
+                           rows, apply_rows, threads, smem, eps, stream);       \
   }
-GN_TWO_PASS_ENTRY(group_norm_two_pass_bf16, __nv_bfloat16)
-GN_TWO_PASS_ENTRY(group_norm_two_pass_f32, float)
+GN_TWO_PASS_ENTRY(group_norm_two_pass_bf16, __nv_bfloat16, false)
+GN_TWO_PASS_ENTRY(group_norm_two_pass_f32, float, false)
+GN_TWO_PASS_ENTRY(group_norm_two_pass_io_bf16, __nv_bfloat16, true)
+GN_TWO_PASS_ENTRY(group_norm_two_pass_io_f32, float, true)
 
 // y (N, M, C) = group_norm(x) on the cluster plan: clusters of P CTAs, each
 // of rows_cta rows of an sc-channel slice, loaded as nbox TMA boxes of
-// box_rows rows; smem is the plan's dynamic shared bytes
-#define GN_CLUSTER_ENTRY(NAME, T)                                               \
+// box_rows rows; smem is the plan's dynamic shared bytes; `_io` as above
+#define GN_CLUSTER_ENTRY(NAME, T, IO)                                           \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta,       \
                       void* y, int N, int M, int C, int G, int sc, int P,       \
                       int rows_cta, int box_rows, int nbox, int threads,        \
                       int smem, float eps, void* stream) {                      \
-    return cluster_launch<T>(x, gamma, beta, y, N, M, C, G, sc, P, rows_cta,    \
-                             box_rows, nbox, threads, smem, eps, stream);       \
+    return cluster_launch<T, IO>(x, gamma, beta, y, N, M, C, G, sc, P,          \
+                                 rows_cta, box_rows, nbox, threads, smem, eps,  \
+                                 stream);                                       \
   }
-GN_CLUSTER_ENTRY(group_norm_cluster_bf16, __nv_bfloat16)
-GN_CLUSTER_ENTRY(group_norm_cluster_f32, float)
+GN_CLUSTER_ENTRY(group_norm_cluster_bf16, __nv_bfloat16, false)
+GN_CLUSTER_ENTRY(group_norm_cluster_f32, float, false)
+GN_CLUSTER_ENTRY(group_norm_cluster_io_bf16, __nv_bfloat16, true)
+GN_CLUSTER_ENTRY(group_norm_cluster_io_f32, float, true)

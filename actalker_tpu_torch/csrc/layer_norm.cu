@@ -6,6 +6,13 @@
 // E[x^2] - mu^2 clamped at 0, the affine in fp32, the output rounded once
 // to the input dtype.
 //
+// The `_io` entries compute the default lowering's function instead
+// (models/common.py's plain LayerNormF32; compile-time kIo): the same
+// statistics, a = rsqrt(var + eps) * gamma and b = beta - mu * a in fp32 as
+// separate rounded operations, a and b rounded to the I/O dtype T, then
+// y = round_T(round_T(x * a) + b), what an elementwise mul and an
+// elementwise add in T give. Only the apply step differs.
+//
 // What bounds it on the H100: bytes. It reads x once and writes y once
 // (2 * M * C * 2 bytes in bf16, 294 MB at M = 56 * 4096, C = 320) for ~8
 // operations per element. The first port walked each row twice with one
@@ -29,7 +36,21 @@ namespace {
 
 constexpr int kWarps = 8;
 
-template <typename T, int VPL, int LPR>
+// y of one element from the row's mean and rsqrt(var + eps): the fp32
+// affine, or (kIo) the default lowering's rounded one
+template <typename T, bool kIo>
+__device__ __forceinline__ float apply(float x, float mu, float inv, float g,
+                                       float b) {
+  if constexpr (kIo) {
+    const float a = __fmul_rn(inv, g);
+    const float c = __fsub_rn(b, __fmul_rn(mu, a));
+    return akt::mul_add_rounded<T>(x, akt::round_to<T>(a), akt::round_to<T>(c));
+  } else {
+    return (x - mu) * inv * g + b;
+  }
+}
+
+template <typename T, int VPL, int LPR, bool kIo>
 __global__ void __launch_bounds__(kWarps * 32)
 layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                        const float* __restrict__ beta, T* __restrict__ y, int M,
@@ -87,10 +108,10 @@ layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         for (int j = 0; j < V; j += 4) {
           const float4 g = *reinterpret_cast<const float4*>(sgb + c0 + j);
           const float4 b = *reinterpret_cast<const float4*>(sgb + C + c0 + j);
-          f[k][j] = (f[k][j] - mu) * inv * g.x + b.x;
-          f[k][j + 1] = (f[k][j + 1] - mu) * inv * g.y + b.y;
-          f[k][j + 2] = (f[k][j + 2] - mu) * inv * g.z + b.z;
-          f[k][j + 3] = (f[k][j + 3] - mu) * inv * g.w + b.w;
+          f[k][j] = apply<T, kIo>(f[k][j], mu, inv, g.x, b.x);
+          f[k][j + 1] = apply<T, kIo>(f[k][j + 1], mu, inv, g.y, b.y);
+          f[k][j + 2] = apply<T, kIo>(f[k][j + 2], mu, inv, g.z, b.z);
+          f[k][j + 3] = apply<T, kIo>(f[k][j + 3], mu, inv, g.w, b.w);
         }
         akt::store_vec(yr + c0, f[k]);
       }
@@ -100,7 +121,7 @@ layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 }
 
 // any C % 8 == 0: one warp per row, lanes take vectors lane, lane + 32, ...
-template <typename T>
+template <typename T, bool kIo>
 __global__ void __launch_bounds__(kWarps * 32)
 layer_norm_general_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                           const float* __restrict__ beta, T* __restrict__ y,
@@ -140,7 +161,7 @@ layer_norm_general_kernel(const T* __restrict__ x, const float* __restrict__ gam
       akt::load_vec(beta + v * V + j, b + j);
     }
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = (f[j] - mu) * inv * g[j] + b[j];
+    for (int j = 0; j < V; ++j) f[j] = apply<T, kIo>(f[j], mu, inv, g[j], b[j]);
     akt::store_vec(yr + v * V, f);
   }
 }
@@ -156,7 +177,7 @@ int sm_count() {
   return n;
 }
 
-template <typename T, int VPL, int LPR>
+template <typename T, int VPL, int LPR, bool kIo>
 int launch_rows(const void* x, const void* gamma, const void* beta, void* y,
                 int M, int C, float eps, cudaStream_t stream) {
   constexpr int kRows = kWarps * 32 / LPR;   // rows per block pass
@@ -164,14 +185,14 @@ int launch_rows(const void* x, const void* gamma, const void* beta, void* y,
   static int attr = 0;
   if (smem > 48 * 1024 && smem > attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        layer_norm_rows_kernel<T, VPL, LPR>,
+        layer_norm_rows_kernel<T, VPL, LPR, kIo>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr = smem;
   }
   const long long passes = ((long long)M + kRows - 1) / kRows;
   const int grid = (int)(passes < 8LL * sm_count() ? passes : 8LL * sm_count());
-  layer_norm_rows_kernel<T, VPL, LPR><<<grid, kWarps * 32, smem, stream>>>(
+  layer_norm_rows_kernel<T, VPL, LPR, kIo><<<grid, kWarps * 32, smem, stream>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (T*)y, M, C, eps);
   return (int)cudaGetLastError();
 }
@@ -179,45 +200,44 @@ int launch_rows(const void* x, const void* gamma, const void* beta, void* y,
 // the templated widths: nv vectors per row as LPR lanes x VPL vectors,
 // the widest LPR first: C = 320 / 640 / 1280 / 2560 bf16 (8 x 5, 16 x 5,
 // 32 x 5, 32 x 10) and 1024 fp32 (32 x 8), the widths the path gives
-template <typename T, int LPR>
+template <typename T, int LPR, bool kIo>
 int try_lanes(const void* x, const void* g, const void* b, void* y, int M,
               int C, float eps, cudaStream_t s, bool* done) {
   const int nv = C / akt::Vec<T>::N;
   *done = true;
-  if (nv == LPR * 5) return launch_rows<T, 5, LPR>(x, g, b, y, M, C, eps, s);
-  if (nv == LPR * 8) return launch_rows<T, 8, LPR>(x, g, b, y, M, C, eps, s);
-  if (nv == LPR * 10) return launch_rows<T, 10, LPR>(x, g, b, y, M, C, eps, s);
+  if (nv == LPR * 5) return launch_rows<T, 5, LPR, kIo>(x, g, b, y, M, C, eps, s);
+  if (nv == LPR * 8) return launch_rows<T, 8, LPR, kIo>(x, g, b, y, M, C, eps, s);
+  if (nv == LPR * 10) return launch_rows<T, 10, LPR, kIo>(x, g, b, y, M, C, eps, s);
   *done = false;
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kIo>
 int launch(const void* x, const void* gamma, const void* beta, void* y, int M,
            int C, float eps, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   bool done = false;
-  int err = try_lanes<T, 32>(x, gamma, beta, y, M, C, eps, s, &done);
-  if (!done) err = try_lanes<T, 16>(x, gamma, beta, y, M, C, eps, s, &done);
-  if (!done) err = try_lanes<T, 8>(x, gamma, beta, y, M, C, eps, s, &done);
+  int err = try_lanes<T, 32, kIo>(x, gamma, beta, y, M, C, eps, s, &done);
+  if (!done) err = try_lanes<T, 16, kIo>(x, gamma, beta, y, M, C, eps, s, &done);
+  if (!done) err = try_lanes<T, 8, kIo>(x, gamma, beta, y, M, C, eps, s, &done);
   if (done) return err;
   const int blocks = (M + kWarps - 1) / kWarps;
-  layer_norm_general_kernel<T><<<blocks, kWarps * 32, 0, s>>>(
+  layer_norm_general_kernel<T, kIo><<<blocks, kWarps * 32, 0, s>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (T*)y, M, C, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// y (M, C) = layer_norm(x (M, C)); C % 8 == 0
-extern "C" int layer_norm_bf16(const void* x, const void* gamma,
-                               const void* beta, void* y, int M, int C,
-                               float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, gamma, beta, y, M, C, eps, stream);
-}
-
-extern "C" int layer_norm_f32(const void* x, const void* gamma,
-                              const void* beta, void* y, int M, int C,
-                              float eps, void* stream) {
-  return launch<float>(x, gamma, beta, y, M, C, eps, stream);
-}
+// y (M, C) = layer_norm(x (M, C)); C % 8 == 0. The `_io` entries: the
+// default lowering's function (the affine rounded in the I/O dtype)
+#define LN_ENTRY(NAME, T, IO)                                                 \
+  extern "C" int NAME(const void* x, const void* gamma, const void* beta,     \
+                      void* y, int M, int C, float eps, void* stream) {       \
+    return launch<T, IO>(x, gamma, beta, y, M, C, eps, stream);               \
+  }
+LN_ENTRY(layer_norm_bf16, __nv_bfloat16, false)
+LN_ENTRY(layer_norm_f32, float, false)
+LN_ENTRY(layer_norm_io_bf16, __nv_bfloat16, true)
+LN_ENTRY(layer_norm_io_f32, float, true)

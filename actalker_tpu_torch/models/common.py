@@ -5,7 +5,12 @@ Twin of ``actalker_tpu/models/common.py``. The norm lowering follows the
 JAX package's switch (``ACTALKER_NORM`` or ``set_norm_impl``, read at call
 time): "xla" (default) applies the affine in the activation dtype; "fused"
 routes every ``LayerNormF32`` / ``GroupNorm32`` through ``ops/norms.py``
-(K7-LN / K7-GN: fp32 affine, one cast of the output). Video
+(K7-LN / K7-GN: fp32 affine, one cast of the output). Under "xla" a call
+that K7 takes (``ops/norms.kernel_takes``: a bf16 or fp32 CUDA tensor with
+C % 8 == 0, ...) launches K7's variant of the default function
+(``io_affine``), and raises where the wrapper cannot normalize its
+operands; any other runs the plain code. Each call counts ``norm.kernel`` or ``norm.plain``
+(``utils/observability.count``), by which of the two ran. Video
 tensors keep the JAX layout, (B, F, H, W, C), and images are NHWC; a conv
 hands cuDNN an NCHW view with channels-last strides, so no copy is made
 around it. Parameter names follow the reference's diffusers modules
@@ -21,8 +26,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from actalker_tpu_torch.ops.norms import group_norm, layer_norm
-from actalker_tpu_torch.utils.observability import spanned
+from actalker_tpu_torch.ops.norms import (
+    group_norm, group_norm_ref, kernel_takes, layer_norm, layer_norm_ref)
+from actalker_tpu_torch.utils.observability import count, spanned
 
 _NORM_IMPL = os.environ.get("ACTALKER_NORM", "xla")
 if _NORM_IMPL not in ("fused", "xla"):
@@ -152,7 +158,8 @@ class TemporalConv(nn.Conv3d):
 class GroupNorm32(nn.Module):
     """GroupNorm over the channel-last axis: fp32 statistics over every axis
     but the first and the last, affine applied in the activation dtype
-    (fused: in fp32, by K7-GN)."""
+    (fused: in fp32, by K7-GN; default, on the card: by K7-GN's variant of
+    this function wherever it takes the call)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -165,27 +172,20 @@ class GroupNorm32(nn.Module):
 
     @spanned("unet.norm")
     def forward(self, x):
-        if _NORM_IMPL == "fused":
-            return group_norm(x, self.weight, self.bias, self.groups, self.eps)
-        n, c = x.shape[0], x.shape[-1]
-        dims = tuple(range(1, x.ndim - 1))
-        s1 = x.mean(dim=dims, dtype=torch.float32)                 # (N, C)
-        s2 = x.float().square().mean(dim=dims)
-        mean_g = s1.reshape(n, self.groups, -1).mean(-1)
-        var_g = (s2.reshape(n, self.groups, -1).mean(-1)
-                 - mean_g.square()).clamp_min(0.0)
-        inv_c = torch.rsqrt(var_g + self.eps).repeat_interleave(
-            c // self.groups, dim=1)
-        mean_c = mean_g.repeat_interleave(c // self.groups, dim=1)
-        a = inv_c * self.weight.float()
-        b = self.bias.float() - mean_c * a
-        shape = (n,) + (1,) * (x.ndim - 2) + (c,)
-        return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        io = _NORM_IMPL == "xla"
+        if io and not kernel_takes(x, self.groups):
+            count("norm.plain", 1)
+            return group_norm_ref(x, self.weight, self.bias, self.groups,
+                                  self.eps, io_affine=True)
+        count("norm.kernel" if x.is_cuda else "norm.plain", 1)
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps,
+                          io_affine=io)
 
 
 class LayerNormF32(nn.Module):
     """LayerNorm over the last axis with fp32 statistics, affine applied in
-    the activation dtype (fused: in fp32, by K7-LN)."""
+    the activation dtype (fused: in fp32, by K7-LN; default, on the card:
+    by K7-LN's variant of this function wherever it takes the call)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -195,11 +195,10 @@ class LayerNormF32(nn.Module):
 
     @spanned("unet.norm")
     def forward(self, x):
-        if _NORM_IMPL == "fused":
-            return layer_norm(x, self.weight, self.bias, self.eps)
-        mean = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
-        var = (x.float().square().mean(dim=-1, keepdim=True)
-               - mean.square()).clamp_min(0.0)
-        a = torch.rsqrt(var + self.eps) * self.weight.float()
-        b = self.bias.float() - mean * a
-        return x * a.to(x.dtype) + b.to(x.dtype)
+        io = _NORM_IMPL == "xla"
+        if io and not kernel_takes(x):
+            count("norm.plain", 1)
+            return layer_norm_ref(x, self.weight, self.bias, self.eps,
+                                  io_affine=True)
+        count("norm.kernel" if x.is_cuda else "norm.plain", 1)
+        return layer_norm(x, self.weight, self.bias, self.eps, io_affine=io)

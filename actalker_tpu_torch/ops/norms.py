@@ -1,13 +1,19 @@
 """LayerNorm and GroupNorm with fp32 statistics and an fp32 affine (K7-LN,
-K7-GN).
+K7-GN), and the default lowering's variant of each.
 
 Twin of ``actalker_tpu/ops/norms.py``. Both normalize channel-last tensors:
 LayerNorm over the last axis, GroupNorm over every axis but the first and
 the last (x (N, ..., C) is taken as (N, M, C)) and the C / G channels of
 each group. Statistics are E[x] and E[x^2] in fp32 with the variance
 clamped at 0; the affine runs in fp32 and the output is cast once to the
-input dtype. This is a different function from the default branch of
-``models/common.py``, which applies the affine in the activation dtype.
+input dtype.
+
+``io_affine=True`` (internal: ``models/common.py`` passes it for the
+default lowering) computes that lowering's function instead, the plain
+branch's: the same statistics and fp32 affine (a, b), both rounded to the
+input dtype, then ``x * a + b`` as an elementwise mul and add in that
+dtype, each rounded. The kernels take it as a compile-time variant of their
+apply step; ``kernel_takes`` says which calls they take.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. ``LayerNormFn`` / ``GroupNormFn`` run the kernel forward and
@@ -120,8 +126,29 @@ def gn_plan(n: int, m: int, c: int, groups: int, itemsize: int,
             "apply_rows": max(1, -(-GN_APPLY_ELEMS // c))}
 
 
-def layer_norm_ref(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
-    """Plain version of K7-LN (twin of ``_ln_xla``)."""
+def kernel_takes(x, groups: int | None = None) -> bool:
+    """Whether K7 takes this norm call, from x's metadata alone: a
+    non-empty CUDA tensor of bf16 or fp32 with C % 8 == 0; a group norm
+    (``groups`` given) also of rank >= 3 and whole groups. Everything else
+    about the operands (gamma / beta's dtype and device, layout,
+    alignment) the wrapper normalizes or refuses with an error."""
+    c = x.shape[-1] if x.ndim else 0
+    return (x.is_cuda and x.dtype in _DTYPES and c % 8 == 0 and x.numel() > 0
+            and (groups is None or (x.ndim >= 3 and groups > 0
+                                    and c % groups == 0)))
+
+
+def layer_norm_ref(x, gamma, beta, eps: float = 1e-5,
+                   io_affine: bool = False) -> torch.Tensor:
+    """Plain version of K7-LN (twin of ``_ln_xla``); ``io_affine``: of its
+    default-lowering variant (the plain ``LayerNormF32``)."""
+    if io_affine:
+        mean = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
+        var = (x.float().square().mean(dim=-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        a = torch.rsqrt(var + eps) * gamma.float()
+        b = beta.float() - mean * a
+        return x * a.to(x.dtype) + b.to(x.dtype)
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf.square().mean(dim=-1, keepdim=True) - mu.square()).clamp_min(0.0)
@@ -144,11 +171,14 @@ def gn_affine(x, gamma, beta, groups: int, eps: float):
     return a, b
 
 
-def group_norm_ref(x, gamma, beta, groups: int = 32, eps: float = 1e-5
-                   ) -> torch.Tensor:
-    """Plain version of K7-GN (twin of ``_gn_xla``)."""
+def group_norm_ref(x, gamma, beta, groups: int = 32, eps: float = 1e-5,
+                   io_affine: bool = False) -> torch.Tensor:
+    """Plain version of K7-GN (twin of ``_gn_xla``); ``io_affine``: of its
+    default-lowering variant (the plain ``GroupNorm32``)."""
     a, b = gn_affine(x, gamma, beta, groups, eps)
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    if io_affine:
+        return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
     return (x.float() * a.reshape(shape) + b.reshape(shape)).to(x.dtype)
 
 
@@ -162,31 +192,36 @@ def _check_affine_args(name, x, gamma, beta):
 _NORM_DTYPES = {"x": _DTYPES, "gamma": _F32, "beta": _F32}
 
 
-_LN_FN = {dt: f"layer_norm_{sfx}" for dt, sfx in _SUFFIX.items()}
+def _entry(base: str, dtype, io_affine: bool) -> str:
+    """A C entry's name: ``<base>_[io_]<bf16|f32>``."""
+    return f"{base}_{'io_' if io_affine else ''}{_SUFFIX[dtype]}"
 
 
-def _ln_launch(x, xp: int, gp: int, bp: int, y, eps: float, dev: int) -> None:
+def _ln_launch(x, xp: int, gp: int, bp: int, y, eps: float, dev: int,
+               io_affine: bool = False) -> None:
     """K7-LN's launch on x's device ``dev``: x / y contiguous of one dtype,
     (..., C), normalized over C; xp / gp / bp the pointers of x, gamma and
     beta (fp32 (C,))."""
     c = x.shape[-1]
-    LN_KERNEL.launch(_LN_FN[x.dtype], "ppppiifp", xp, gp, bp, y.data_ptr(),
-                     x.numel() // c, c, eps,
+    LN_KERNEL.launch(_entry("layer_norm", x.dtype, io_affine), "ppppiifp", xp,
+                     gp, bp, y.data_ptr(), x.numel() // c, c, eps,
                      torch._C._cuda_getCurrentRawStream(dev))
 
 
-def layer_norm_launch(x, gamma, beta, y, eps: float) -> None:
+def layer_norm_launch(x, gamma, beta, y, eps: float,
+                      io_affine: bool = False) -> None:
     """The bare K7-LN launch into y, on operands that pass the wrapper's
     checks; no checks (the launch alone, for timing)."""
     _ln_launch(x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y, eps,
-               x.get_device())
+               x.get_device(), io_affine)
 
 
-def _layer_norm_fwd(x, gamma, beta, eps: float) -> torch.Tensor:
+def _layer_norm_fwd(x, gamma, beta, eps: float,
+                    io_affine: bool = False) -> torch.Tensor:
     """K7-LN launch (plain version for CPU tensors). The kernel takes x in
     its own shape (no reshape or view per call)."""
     if not x.is_cuda:
-        return layer_norm_ref(x, gamma, beta, eps)
+        return layer_norm_ref(x, gamma, beta, eps, io_affine)
     c = x.shape[-1]
     if not (c % 8 == 0 and gamma.shape == (c,) and beta.shape == (c,)
             and cuda_tensors_ok((x, gamma, beta), _NORM_DTYPES)):
@@ -195,7 +230,7 @@ def _layer_norm_fwd(x, gamma, beta, eps: float) -> torch.Tensor:
         check_cuda_tensors("K7-LN", (x, gamma, beta), _NORM_DTYPES)
     y = torch.empty_like(x)
     _ln_launch(x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y, eps,
-               x.get_device())
+               x.get_device(), io_affine)
     return y
 
 
@@ -272,14 +307,15 @@ def group_norm_affine(x, gamma, beta, groups: int, eps: float):
 
 
 def group_norm_launch(x, gamma, beta, groups: int, eps: float, y,
-                      plan: dict) -> None:
+                      plan: dict, io_affine: bool = False) -> None:
     """K7-GN into y on ``plan`` (``gn_plan``'s, its ``path``), on operands
     that pass the wrapper's checks: x / y (N, ..., C) contiguous."""
     n, m, c = _nmc(x)
-    sfx, stream = _SUFFIX[x.dtype], stream_of(x)
+    stream = stream_of(x)
     if plan["path"] == "cluster":
         cl = plan["cluster"]
-        GN_KERNEL.launch(f"group_norm_cluster_{sfx}", "ppppiiiiiiiiiiifp",
+        GN_KERNEL.launch(_entry("group_norm_cluster", x.dtype, io_affine),
+                         "ppppiiiiiiiiiiifp",
                          x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                          y.data_ptr(), n, m, c, groups, cl["sc"], cl["p"],
                          cl["rows_cta"], cl["box_rows"], cl["nbox"],
@@ -287,72 +323,78 @@ def group_norm_launch(x, gamma, beta, groups: int, eps: float, y,
         return
     st = plan["stats"]
     part, count, a, b = _gn_stats_ptrs(x, plan, stream)
-    GN_KERNEL.launch(f"group_norm_two_pass_{sfx}", "ppppppppiiiiiiiifp",
+    GN_KERNEL.launch(_entry("group_norm_two_pass", x.dtype, io_affine),
+                     "ppppppppiiiiiiiifp",
                      x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part,
                      count, a, b, y.data_ptr(), n, m, c, groups, st["rows"],
                      plan["apply_rows"], st["threads"], st["smem"], eps, stream)
 
 
-def _group_norm_fwd(x, gamma, beta, groups: int, eps: float) -> torch.Tensor:
+def _group_norm_fwd(x, gamma, beta, groups: int, eps: float,
+                    io_affine: bool = False) -> torch.Tensor:
     """K7-GN launch (plain version for CPU tensors): one launch where a
     cluster holds an image's slice, else two (``gn_plan``)."""
     if not x.is_cuda:
-        return group_norm_ref(x, gamma, beta, groups, eps)
+        return group_norm_ref(x, gamma, beta, groups, eps, io_affine)
     x, gamma, beta = _gn_operands("K7-GN", x, gamma, beta, groups)
     n, m, c = _nmc(x)
     y = torch.empty_like(x)
     group_norm_launch(x, gamma, beta, groups, eps, y,
-                      gn_plan(n, m, c, groups, x.element_size()))
+                      gn_plan(n, m, c, groups, x.element_size()), io_affine)
     return y
 
 
 class LayerNormFn(torch.autograd.Function):
-    """K7-LN forward; the backward differentiates ``layer_norm_ref``."""
+    """K7-LN forward; the backward differentiates ``layer_norm_ref`` (of
+    the same variant). Only x, gamma and beta are saved."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, io_affine):
         ctx.save_for_backward(x, gamma, beta)
-        ctx.eps = eps
-        return _layer_norm_fwd(x, gamma, beta, eps)
+        ctx.eps, ctx.io_affine = eps, io_affine
+        return _layer_norm_fwd(x, gamma, beta, eps, io_affine)
 
     @staticmethod
     def backward(ctx, dy):
         ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = layer_norm_ref(*ins, ctx.eps)
-        return (*torch.autograd.grad(out, ins, dy), None)
-
-
-class GroupNormFn(torch.autograd.Function):
-    """K7-GN forward; the backward differentiates ``group_norm_ref``."""
-
-    @staticmethod
-    def forward(ctx, x, gamma, beta, groups, eps):
-        ctx.save_for_backward(x, gamma, beta)
-        ctx.groups, ctx.eps = groups, eps
-        return _group_norm_fwd(x, gamma, beta, groups, eps)
-
-    @staticmethod
-    def backward(ctx, dy):
-        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = group_norm_ref(*ins, ctx.groups, ctx.eps)
+            out = layer_norm_ref(*ins, ctx.eps, ctx.io_affine)
         return (*torch.autograd.grad(out, ins, dy), None, None)
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
+class GroupNormFn(torch.autograd.Function):
+    """K7-GN forward; the backward differentiates ``group_norm_ref`` (of
+    the same variant). Only x, gamma and beta are saved."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, io_affine):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.groups, ctx.eps, ctx.io_affine = groups, eps, io_affine
+        return _group_norm_fwd(x, gamma, beta, groups, eps, io_affine)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = group_norm_ref(*ins, ctx.groups, ctx.eps, ctx.io_affine)
+        return (*torch.autograd.grad(out, ins, dy), None, None, None)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5,
+               io_affine: bool = False) -> torch.Tensor:
     """LayerNorm over the last axis of x (..., C); gamma / beta (C,);
-    differentiable through ``LayerNormFn`` when autograd needs it."""
+    differentiable through ``LayerNormFn`` when autograd needs it.
+    ``io_affine``: the default lowering's variant (module docstring)."""
     if needs_grad(x, gamma, beta):
-        return LayerNormFn.apply(x, gamma, beta, eps)
-    return _layer_norm_fwd(x, gamma, beta, eps)
+        return LayerNormFn.apply(x, gamma, beta, eps, io_affine)
+    return _layer_norm_fwd(x, gamma, beta, eps, io_affine)
 
 
-def group_norm(x, gamma, beta, groups: int = 32, eps: float = 1e-5
-               ) -> torch.Tensor:
+def group_norm(x, gamma, beta, groups: int = 32, eps: float = 1e-5,
+               io_affine: bool = False) -> torch.Tensor:
     """GroupNorm of x (N, ..., C) with ``groups`` channel groups; gamma /
     beta (C,); differentiable through ``GroupNormFn`` when autograd needs
-    it."""
+    it. ``io_affine``: the default lowering's variant (module docstring)."""
     if needs_grad(x, gamma, beta):
-        return GroupNormFn.apply(x, gamma, beta, groups, eps)
-    return _group_norm_fwd(x, gamma, beta, groups, eps)
+        return GroupNormFn.apply(x, gamma, beta, groups, eps, io_affine)
+    return _group_norm_fwd(x, gamma, beta, groups, eps, io_affine)

@@ -27,8 +27,9 @@ the port's kernels its device time per launch by launch grid; then the
 program's spans (``utils/observability``): per span name its count, its
 device ms from start event to end event (``span_table``), and the device
 ms of the kernels, memcpys and memsets it launched, by innermost span and
-by every span open at the launch; a JSON line for each window. Needs a
-CUDA card.
+by every span open at the launch; then the program's counters (e.g.
+``norm.kernel`` / ``norm.plain``: norm calls through K7 / the plain code);
+a JSON line for each window. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -184,6 +185,24 @@ class Window:
         self.spans = observability.span_table()
 
 
+def span_lines(table, by_span):
+    """The span table's lines: per span name its count, device ms start
+    event to end event, and its kernels' ms by innermost span and inside
+    it (``by_span``, from ``span_kernel_times``); then each counter of
+    ``table`` (``observability.span_table``), such as ``norm.kernel`` /
+    ``norm.plain``, the norm calls that launched K7 / ran the plain code."""
+    rows = table["spans"]
+    lines = [f"  {'span':24s} {'n':>6s} {'events ms':>11s} {'innermost ms':>13s} "
+             f"{'inside ms':>11s}"]
+    for name in sorted(set(rows) | set(by_span)):
+        n, ev = (rows[name]["n"], rows[name]["device_ms"]) if name in rows else (0, 0.0)
+        inner, inside = by_span.get(name, (0.0, 0.0))
+        lines.append(f"  {name:24s} {n:6d} {ev:11.2f} {inner:13.2f} {inside:11.2f}")
+    lines += [f"  counter {name:24s} {n:12d}"
+              for name, n in sorted(table["counters"].items())]
+    return lines
+
+
 def profile_train(tmp: str) -> Window:
     from actalker_tpu_torch.training import train
 
@@ -301,13 +320,8 @@ def main(argv=None):
                 if kg == g:
                     print(f"    {name} grid {grid}: {k} launches, "
                           f"{kms / k:.4f} ms each")
-        rows = win.spans["spans"]
-        print(f"  {'span':24s} {'n':>6s} {'events ms':>11s} {'innermost ms':>13s} "
-              f"{'inside ms':>11s}")
-        for name in sorted(set(rows) | set(win.by_span)):
-            n, ev = (rows[name]["n"], rows[name]["device_ms"]) if name in rows else (0, 0.0)
-            inner, inside = win.by_span.get(name, (0.0, 0.0))
-            print(f"  {name:24s} {n:6d} {ev:11.2f} {inner:13.2f} {inside:11.2f}")
+        for line in span_lines(win.spans, win.by_span):
+            print(line)
         print(json.dumps({"what": args.what, "module": label or None,
                           "norm": args.norm, "resconv": args.resconv,
                           "card": card, "wall_ms": wall_ms, "busy_ms": busy,

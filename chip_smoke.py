@@ -34,14 +34,20 @@ Phases, one line each (any failure raises and exits non-zero):
   5. clip path: the 512 px / 14-frame clip (full-width UNet, bf16 UNet and
      VAE, seeded weights, mode 2) through ``generate_latents`` and
      ``decode_latents``, run twice; the second run is timed, and the kernel
-     launch counts of that run must match the UNet calls it made, and
-     K7-LN / K7-GN / K8 must not launch;
+     launch counts of that run must match the UNet calls it made, K8 must
+     not launch, and K7-LN / K7-GN (the default lowering's variant) must
+     launch once per LayerNormF32 / GroupNorm32 of each module run whose
+     width K7 takes, the others running plain ("norm.plain"); every later
+     phase that counts launches derives these too (``norm_launches``: a
+     training micro-step's checkpointed blocks twice, the batch builder's
+     encoders and the heads once);
      5b. the same clip under the fused-norm configuration, timed the same
      way; the launches of all seven forward kernels must equal the counts
      derived from the model (UNet calls, VAE encodes and decodes, heads);
   6. gradients: a full-width UNet with block checkpointing (fp32 master
      weights, bf16 compute) on a small latent, loss and every parameter
-     gradient through the kernels and through the plain versions;
+     gradient through the kernels and through the plain versions, K7's
+     launches in forward and recompute as derived;
   7. training path: ``training.train.main`` at the ``configs/train.yaml``
      operating point (512 px, 25 frames, batch 1, 4-step accumulation,
      block checkpointing, seeded weights) for 8 micro-steps: finite losses,
@@ -192,6 +198,15 @@ TOL = {
 DEFAULT_KERNELS = ("ssm_scan_grouped", "mha", "frame_attention", "geglu_mlp",
                    "ssm_scan_bwd", "mha_bwd")
 FUSED_KERNELS = ("layer_norm", "group_norm", "gn_silu_conv3x3")
+# K7-LN / K7-GN also run under the default lowering (its variant of them:
+# one launch per LayerNormF32 / GroupNorm32 call on the card that K7 takes);
+# the calls it does not take run the plain code and count "norm.plain",
+# kept beside the kernels' launch counters (``count_plain_norms``), so that
+# every phase derives and compares both
+PLAIN = "norm.plain"
+NORM_ENTRIES = (*FUSED_KERNELS, PLAIN)
+# the trainable heads a raw-head micro-step runs once each, in its forward
+HEADS = ("audio_proj", "id_proj", "vasa_proj", "pose_guider")
 # the lineage modules, kernels vs plain (phase 8), by activation dtype: in
 # bf16 the scans' outputs round to bf16 in both and a single flip travels
 # through the later units (the CPU tests' bf16 tolerance); in fp32 only the
@@ -436,6 +451,86 @@ def fused_norm_config():
     finally:
         common.set_norm_impl(saved[0])
         resnet.set_resconv_impl(saved[1])
+
+
+def count_plain_norms(kernels):
+    """Add ``PLAIN`` to ``kernels``: a counter (``.launches``, reset and
+    read with the kernels') of the norm calls that ran the plain code, kept
+    by a spy on ``models/common.count`` whether or not tracing is on."""
+    import types
+
+    from actalker_tpu_torch.models import common
+
+    plain, real = types.SimpleNamespace(name=PLAIN, launches=0), common.count
+
+    def spy(name, n):
+        if name == PLAIN:
+            plain.launches += n
+        return real(name, n)
+
+    common.count = spy
+    kernels[PLAIN] = plain
+
+
+def norm_launches(*modules):
+    """Launches of K7-LN, K7-GN and K8, and plain norm calls (``PLAIN``),
+    that one forward of each module makes under the default lowerings on
+    the card: a LayerNormF32 / GroupNorm32 whose width K7 takes (C % 8 ==
+    0, whole groups: ``ops/norms.kernel_takes``) launches K7-LN / K7-GN
+    once (the resnets' norms are GroupNorm32 calls there), any other runs
+    plain; no K8."""
+    from actalker_tpu_torch.models.common import GroupNorm32, LayerNormF32
+
+    out = dict.fromkeys(NORM_ENTRIES, 0)
+    for m in modules:
+        for sub in m.modules():
+            if isinstance(sub, (LayerNormF32, GroupNorm32)):
+                gn, c = isinstance(sub, GroupNorm32), sub.weight.shape[0]
+                takes = c % 8 == 0 and (not gn or c % sub.groups == 0)
+                out[PLAIN if not takes else "group_norm" if gn else "layer_norm"] += 1
+    return out
+
+
+def norm_sum(parts):
+    """The norm entries (``NORM_ENTRIES``) of (calls, per-forward counts)
+    pairs, summed."""
+    return {n: sum(c * p.get(n, 0) for c, p in parts) for n in NORM_ENTRIES}
+
+
+def step_norm_launches(unet, heads=(), builder=()):
+    """``norm_sum`` of one training micro-step with one checkpoint scope per
+    UNet block: the norms of the UNet's down, mid and up blocks twice
+    (forward, recompute), its others once; the ``heads`` once (the forward;
+    a backward differentiates the plain twin and launches nothing);
+    ``builder``: (calls, module) pairs of the batch builder's encoders."""
+    blocks = (*unet.down_blocks, unet.mid_block, *unet.up_blocks)
+    return norm_sum(((1, norm_launches(unet)), (1, norm_launches(*blocks)),
+                     (1, norm_launches(*heads)),
+                     *((c, norm_launches(m)) for c, m in builder)))
+
+
+def frozen_encoders(torch):
+    """The training batch builder's frozen encoders as structure alone (on
+    the meta device): the VAE's encoder and whisper."""
+    from actalker_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
+    from actalker_tpu_torch.models.whisper import WhisperEncoder
+
+    with torch.device("meta"):
+        return AutoencoderKLTemporalDecoder(VAEConfig()).encoder, WhisperEncoder()
+
+
+def cli_norm_launches(m, calls, num_frames, decode_chunk, vasa):
+    """``norm_sum`` of one ``cli.generate_frames`` run on the modules ``m``:
+    per UNet call; two VAE encodes (the reference and its noise-augmented
+    copy); a decode per chunk; whisper once (the CLI inputs' 1.2 s of audio
+    are one 3000-frame mel window); audio_proj twice (the audio tokens and
+    the unconditional ones); vasa_proj twice where a driving video gives
+    VASA tokens (``vasa``); the heads generate_latents runs once."""
+    return norm_sum(((calls, norm_launches(m.unet)), (2, norm_launches(m.vae.encoder)),
+                     (-(-num_frames // decode_chunk), norm_launches(m.vae.decoder)),
+                     (1, norm_launches(m.whisper)), (2, norm_launches(m.audio_proj)),
+                     (2 if vasa else 0, norm_launches(m.vasa_proj)),
+                     (1, norm_launches(m.id_proj, m.pose_guider))))
 
 
 def lineage_launches(module):
@@ -792,6 +887,41 @@ def kernel_cases(torch, dev, gen, tp=1):
                lambda x=x, g=g, b=b: norms.group_norm_affine(x, g, b, 32, 1e-5),
                lambda x=x, g=g, b=b: norms.gn_affine(x, g, b, 32, 1e-5), None,
                bound(n * m * c * 2 + 8 * c + 8 * n * c, 3 * n * m * c, PEAK_FP32))
+    # the default lowering's variant (``io_affine``: the affine rounded in
+    # the activation dtype, as the plain default branch rounds it) at the
+    # 576 px cell's shapes (4 CFG x 25 frames, 72 x 72 latents): plain is
+    # that branch, "fp32-affine K7" the fused lowering's launch on the same
+    # input. K7-LN at res-72 and at the SSM out-norm, which takes a (L, B)
+    # transpose of bf16 tokens (the wrapper copies it contiguous first), and
+    # in fp32 at that width; K7-GN on the two-pass path (res-72, and the
+    # temporal resnets' (4, 25 * 72 * 72, C)) and the cluster path (res-36)
+    for label, m, c, dtype, tr in (("res-72", 100 * 5184, 320, bf, False),
+                                   ("SSM out-norm, res-72", 100 * 5184, 640, bf, True),
+                                   ("fp32", 100 * 5184, 640, torch.float32, False)
+                                   ) if tp == 1 else ():
+        x = rnd(m, c, dtype=dtype, scale=2.0) + 0.5
+        if tr:
+            x = x.view(5184, 100, c).transpose(0, 1)
+        g, b = 1.0 + rnd(c, dtype=torch.float32, scale=0.3), rnd(c, dtype=torch.float32)
+        yield ("layer_norm", f"default variant, {label}: {tuple(x.shape)} "
+                             f"{str(dtype)[6:]}{' (transposed)' if tr else ''}",
+               lambda x=x, g=g, b=b: norms.layer_norm(x, g, b, io_affine=True),
+               lambda x=x, g=g, b=b: norms.layer_norm_ref(x, g, b, io_affine=True),
+               None, bound(2 * m * c * x.element_size() + 8 * c, 10 * m * c, PEAK_FP32),
+               {"fused": lambda x=x, g=g, b=b: norms.layer_norm(x, g, b)})
+    for label, n, m, c, eps in (("res-72, two-pass", 100, 5184, 320, 1e-6),
+                                ("temporal resnets, two-pass", 4, 25 * 5184, 320, 1e-5),
+                                ("res-36, cluster", 100, 1296, 640, 1e-6)
+                                ) if tp == 1 else ():
+        x = rnd(n, m, c, scale=2.0) - 0.5
+        g, b = 1.0 + rnd(c, dtype=torch.float32, scale=0.3), rnd(c, dtype=torch.float32)
+        yield ("group_norm", f"default variant, {label}: (N, M, C) = ({n}, {m}, {c})",
+               lambda x=x, g=g, b=b, eps=eps:
+                   norms.group_norm(x, g, b, 32, eps, io_affine=True),
+               lambda x=x, g=g, b=b, eps=eps:
+                   norms.group_norm_ref(x, g, b, 32, eps, io_affine=True),
+               None, bound(2 * n * m * c * 2 + 8 * c, 10 * n * m * c, PEAK_FP32),
+               {"fused": lambda x=x, g=g, b=b, eps=eps: norms.group_norm(x, g, b, 32, eps)})
     # a tp rank: C_out / tp (the VAE is whole)
     for n, hw, c, co in ((56, 64, 320, 320 // tp), (56, 32, 640, 640 // tp),
                          (56, 16, 2560, 1280 // tp), (56, 8, 1280, 1280 // tp),
@@ -1010,6 +1140,9 @@ def phase9(torch, dev, kernels, card):
         calls = unet_calls(cfg.sampler_config(cli.MODE_GATES[mode]), res["num_frames"])
         per = forward_launches(pipe.m.unet)
         want = {n: per.get(n, 0) * calls for n in kernels}
+        want.update(cli_norm_launches(pipe.m, calls, res["num_frames"],
+                                      cfg.decode_chunk_size, vasa=mode != 0
+                                      and pipe.m.vasa_expression is not None))
         caps = pipe._capacity_fracs(cfg.sampler_config(cli.MODE_GATES[mode]),
                                     res["masks"]["audio_mask"], res["masks"]["exp_mask"],
                                     (PX // 8, PX // 8))
@@ -1146,11 +1279,9 @@ def phase9(torch, dev, kernels, card):
             _, rel = forward_check(fwd7, None)
         per = forward_launches(unet)
         want = {n: per.get(n, 0) * calls7 for n in kernels}
-        if label != "default":
-            parts = ((calls7, fused_launches(unet)), (2, fused_launches(pipe.m.vae.encoder)),
-                     (1, fused_launches(pipe.m.id_proj, pipe.m.pose_guider)))
-            for n in FUSED_KERNELS:
-                want[n] = sum(c * p[n] for c, p in parts)
+        per_norm = norm_launches if label == "default" else fused_launches
+        want.update(norm_sum(((calls7, per_norm(unet)), (2, per_norm(pipe.m.vae.encoder)),
+                              (1, per_norm(pipe.m.id_proj, pipe.m.pose_guider)))))
         print(f"[9 C7] {C7_PX} px / {C7_FRAMES} frames, {label}: seconds per "
               f"window-step {sec:.4f} s ({calls7} UNet calls of 4 CFG x {C7_FRAMES} f x "
               f"{hw7}x{hw7}, S = {hw7 * hw7}) | peak max_memory_allocated "
@@ -1311,6 +1442,9 @@ def phase10(torch, dev, kernels, card):
     calls = unet_calls(cfg.sampler_config(gate), res["num_frames"])
     per = forward_launches(res["pipe"].m.unet)
     want = {n: per.get(n, 0) * calls for n in kernels}
+    # no driving video: zero VASA tokens, no vasa_proj
+    want.update(cli_norm_launches(res["pipe"].m, calls, res["num_frames"],
+                                  cfg.decode_chunk_size, vasa=False))
     frames = res["frames01"]
     sec = {k: round(v, 4) for k, v in res["seconds"].items()}
     print(f"[10 cli] mode 2, every pass on (yolov5m-face, RTMPose-m face6, GPEN-512 "
@@ -1391,10 +1525,11 @@ def micro_step_launches():
     """Launches per training micro-step with one checkpoint scope per block:
     every forward kernel runs twice (forward, recompute); the backward runs
     K6 once per (SS2D block, group) and K2-bwd once per spatial
-    self-attention; the builder's encoders (default configuration) none."""
+    self-attention; the batch builder's encoders (default configuration) none; K8
+    none (K7's launches and the plain norm calls: ``step_norm_launches``)."""
     return {"ssm_scan_grouped": 2 * 15, "mha": 2 * 16, "frame_attention": 2 * 16,
             "geglu_mlp": 2 * 96, "ssm_scan_bwd": 15 * 4, "mha_bwd": 16,
-            "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
+            "ssm_scan": 0, "gn_silu_conv3x3": 0}
 
 
 def drifted(scene, t, drift):
@@ -1566,6 +1701,7 @@ def phase11_serving(torch, dev, kernels, card, pipe):
     for name, r, ncalls, cs in (("batched", b, calls, [caps]),
                                 ("sequential", s, SERVE_IDS * calls, own_caps)):
         want = {n: per.get(n, 0) * ncalls for n in kernels}
+        want.update(norm_sum(((ncalls, norm_launches(unet)),)))
         want_rows = k1_rows_of(cs)
         print(f"[11 C4] {name}: {SERVE_IDS} identities x {FRAMES} frames, {PX} px, "
               f"{STEPS} steps, mode 2, own masks / tokens / generator each: "
@@ -1693,8 +1829,14 @@ def phase11_train(torch, dev, kernels, card, meta, arcface_path):
     recs = res["records"]
     per_step = [{n: c1[n] - c0[n] for n in kernels}
                 for c0, c1 in zip(seen["counts"], seen["counts"][1:])]
-    expect = micro_step_launches()
     mods = res["modules"]
+    # the batch builder's frozen encoders, a micro-step: the sample's 25
+    # frames in VAE calls of 16 (``BatchBuilder``'s encode_chunk) and the
+    # reference frame's, and whisper on the clip's one 3000-frame mel window
+    vae_enc, whisper = frozen_encoders(torch)
+    expect = {**micro_step_launches(),
+              **step_norm_launches(mods["unet"], [mods[h] for h in HEADS],
+                                   ((-(-25 // 16) + 1, vae_enc), (1, whisper)))}
     tcfg = train.TrainConfig()
     batch = seen["batch"]
     draws = sample_draws(batch, tcfg, torch.Generator(device=dev).manual_seed(5))
@@ -1852,7 +1994,9 @@ def phase12(torch, dev, kernels, card, phase7):
         n_params = opt.layout.numel
         held = {"masters": opt.flat.numel() * 4, "moments": 2 * opt.exp_avg.numel() * 4,
                 "grads": opt.grad.numel() * 4}
-        expect = micro_step_launches()
+        expect = {**micro_step_launches(),
+                  **step_norm_launches(res["modules"]["unet"],
+                                       [res["modules"][h] for h in HEADS])}
         print(f"[12 zero2] train.main --synthetic {SHARDED_MICRO_STEPS} --dp 1 under "
               f"init_distributed ({dist.get_backend()}, world {dist.get_world_size()}), "
               f"ShardedOptimizer over {n_params} parameters in {len(opt.layout.buckets)} "
@@ -1928,6 +2072,7 @@ def phase12_serving(torch, dev, kernels, card, group):
     (a, sec_a, _), (b, sec_b, counts) = runs["alone"], runs["split"]
     per = forward_launches(pipe.m.unet)
     want = {n: per.get(n, 0) * unet_calls(scfg, FRAMES) for n in kernels}
+    want.update(norm_sum(((unet_calls(scfg, FRAMES), norm_launches(pipe.m.unet)),)))
     rel = errors(b, a)[1]
     print(f"[12 serve] {SPLIT_IDS} identities, {PX} px x {FRAMES} frames, 1 step, "
           f"mode 2 with face-box masks: rank-split generate_latents_batch (NCCL, world "
@@ -2163,15 +2308,16 @@ def tp_unet_config():
                                gradient_checkpointing=True)
 
 
-def micro_step_launches_of(unet):
+def micro_step_launches_of(unet, heads=()):
     """Launches per training micro-step with one checkpoint scope per block,
-    derived from ``unet``: every forward kernel twice (forward, recompute),
-    K6 once per (SS2D block, group), K2-bwd once per spatial
-    self-attention."""
+    derived from ``unet`` and the ``heads`` the step runs: every forward
+    kernel twice (forward, recompute), K6 once per (SS2D block, group),
+    K2-bwd once per spatial self-attention, K7 and the plain norm calls as
+    ``step_norm_launches`` counts them, K8 none."""
     f = forward_launches(unet)
     return {**{n: 2 * c for n, c in f.items()},
             "ssm_scan_bwd": 4 * f["ssm_scan_grouped"], "mha_bwd": f["mha"],
-            "ssm_scan": 0, **{n: 0 for n in FUSED_KERNELS}}
+            "ssm_scan": 0, **step_norm_launches(unet, heads)}
 
 
 def tp_step_rank(rank, world, port, out):
@@ -2202,6 +2348,7 @@ def tp_step_rank(rank, world, port, out):
                                    mha.FRAME_KERNEL, mlp.KERNEL, ss.BWD_KERNEL,
                                    mha.MHA_BWD_KERNEL, norms.LN_KERNEL,
                                    norms.GN_KERNEL, resconv.KERNEL)}
+    count_plain_norms(kernels)
     tcfg = TrainConfig(grad_accum_steps=1, learning_rate=1e-4, adam_eps=1.0,
                        max_grad_norm=1e6)
 
@@ -2242,7 +2389,8 @@ def tp_step_rank(rank, world, port, out):
         mods = train.build_modules(tp_unet_config(), dev, torch.bfloat16)
         plan = shard_modules_(mods, TPGroup(tp_group, world, i_tp))
         res["n_sliced_local"] = sum(p.numel() for p in plan.sharded_params(mods))
-        res["launches_derived"] = micro_step_launches_of(mods["unet"])
+        res["launches_derived"] = micro_step_launches_of(mods["unet"],
+                                                         [mods[h] for h in HEADS])
         torch.cuda.reset_peak_memory_stats()
         res["records"] = run(mods, Trainer(mods, tcfg, torch.bfloat16, sharded=True,
                                            group=dp_group, tp_plan=plan))
@@ -2516,6 +2664,10 @@ def phase14(torch, dev, kernels, card, results):
         (la, sa, _), (lb, sb, cb) = runs["alone"], runs["split"]
         per = forward_launches(pipe.m.unet)
         want = {n: per.get(n, 0) * unet_calls(scfg, FRAMES) for n in kernels}
+        # per UNet call, the two VAE encodes and the heads, as phase 5
+        want.update(norm_sum(((unet_calls(scfg, FRAMES), norm_launches(pipe.m.unet)),
+                              (2, norm_launches(pipe.m.vae.encoder)),
+                              (1, norm_launches(pipe.m.id_proj, pipe.m.pose_guider)))))
         rel = errors(lb, la)[1]
         counts["sample_split_windows"] = cb
         print(f"[14 windows] generate_latents(group=) ({PX} px x {FRAMES} frames, 1 "
@@ -2618,7 +2770,8 @@ def check_kernels(torch, cases, results, card, tag):
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         more = "".join(f" {what} {timed(torch, extras[key], 10):.4f} ms"
                        for key, what in (("alone", "launch alone"),
-                                         ("chain", "library chain"))
+                                         ("chain", "library chain"),
+                                         ("fused", "fp32-affine K7"))
                        if key in extras)
         if "floor" in extras:
             more += f" exp floor {extras['floor']:.4f} ms"
@@ -2667,6 +2820,7 @@ def main() -> int:
     _build.build_all(kernels.values())
     print(f"[2 build] {', '.join(f'{n} {k.build_seconds:.1f}s' for n, k in kernels.items())}"
           f" | total {time.perf_counter() - t0:.1f}s (in parallel)", flush=True)
+    count_plain_norms(kernels)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -2705,16 +2859,22 @@ def main() -> int:
     args = (rn(b, f, hw, hw, 8).bfloat16(), torch.tensor(0.5, device=dev), cond,
             rn(b, 3).bfloat16(), (rn(b, f, hw, hw, 320) * 0.1).bfloat16())
     with torch.no_grad():
+        for k in kernels.values():
+            k.launches = 0
         y_k = unet(*args)
+        norm_counts = {n: kernels[n].launches for n in NORM_ENTRIES}
         with plain_ops():
             y_p = unet(*args)
     torch.cuda.synchronize()
     mx, rel = errors(y_k, y_p)
+    want = norm_launches(unet)
     print(f"[4 unet] UNetConfig() bf16 (4, 4, 32, 32, 8): kernels vs plain "
-          f"max_abs {mx:.4g} rel_l2 {rel:.3g} (tol {UNET_TOL}) | {card}",
-          flush=True)
+          f"max_abs {mx:.4g} rel_l2 {rel:.3g} (tol {UNET_TOL}) | K7 / K8 launches, plain norms "
+          f"{norm_counts} (derived {want}) | {card}", flush=True)
     if not (torch.isfinite(y_k.float()).all() and rel <= UNET_TOL):
         raise RuntimeError("UNet through the kernels disagrees with the plain path")
+    if norm_counts != want:
+        raise RuntimeError(f"default forward K7 / K8 launches {norm_counts} != {want}")
 
     # ---- 4b: the same forward under the fused-norm configuration ----
     with torch.no_grad(), fused_norm_config():
@@ -2789,10 +2949,16 @@ def main() -> int:
           f"{card}", flush=True)
     if frames.shape != (FRAMES, PX, PX, 3) or not np.isfinite(frames).all():
         raise RuntimeError(f"clip output {frames.shape} not finite / wrong shape")
-    for n in kernels:
-        if counts[n] != per_forward.get(n, 0) * unet_calls:
-            raise RuntimeError(f"{n}: {counts[n]} launches, expected "
-                               f"{per_forward.get(n, 0)} x {unet_calls} UNet calls")
+    # K7 (the default lowering's variant): per UNet call, per VAE encode,
+    # per decode chunk and the heads, as 5b derives the fused lowering's
+    encodes, decodes = 2, -(-FRAMES // FRAMES)
+    want = {n: per_forward.get(n, 0) * unet_calls for n in kernels}
+    want.update(norm_sum(((unet_calls, norm_launches(mods.unet)),
+                          (encodes, norm_launches(mods.vae.encoder)),
+                          (decodes, norm_launches(mods.vae.decoder)),
+                          (1, norm_launches(mods.id_proj, mods.pose_guider)))))
+    if counts != want:
+        raise RuntimeError(f"clip launches {counts} != derived {want}")
     clip_counts = counts
 
     # ---- 5b: the same clip under the fused-norm configuration ----
@@ -2808,7 +2974,6 @@ def main() -> int:
     # derived from the model: per UNet call, per VAE encode (the reference
     # image and its noise-augmented copy), per decode chunk, and the heads
     # generate_latents runs once (id_proj, pose_guider)
-    encodes, decodes = 2, -(-FRAMES // FRAMES)
     parts = ((unet_calls, fused_launches(mods.unet)),
              (encodes, fused_launches(mods.vae.encoder)),
              (decodes, fused_launches(mods.vae.decoder)),
@@ -2895,6 +3060,9 @@ def main() -> int:
                            "the plain path")
     if any(grad_counts[n] == 0 for n in DEFAULT_KERNELS):
         raise RuntimeError(f"a kernel did not run in the gradient: {grad_counts}")
+    want = step_norm_launches(unet)
+    if {n: grad_counts[n] for n in NORM_ENTRIES} != want:
+        raise RuntimeError(f"gradient K7 / K8 launches, plain norms {grad_counts} != {want}")
     del g_k
     with attention_bwd("library"):
         _, g_l, gg_l = unet_grads()
@@ -2956,7 +3124,9 @@ def main() -> int:
     train_counts = {n: seen["counts"][-1][n] for n in kernels}
     secs = sorted(r["seconds"] for r in recs[-4:])
     sec_step = (secs[1] + secs[2]) / 2
-    expect = micro_step_launches()
+    expect = {**micro_step_launches(),
+              **step_norm_launches(res["modules"]["unet"],
+                                   [res["modules"][h] for h in HEADS])}
     print(f"[7 train] {TRAIN_MICRO_STEPS} micro-steps at 512 px x 25 frames, "
           f"batch 1, accumulation 4, block checkpointing, bf16 / fp32 masters: "
           f"seconds per micro-step {sec_step:.4f} s (median of the last 4) | "
@@ -3043,6 +3213,7 @@ def main() -> int:
         tol = LINEAGE_TOL["bfloat16" if bf16 else "float32"]
         want = {n: 0 for n in kernels}
         want["ssm_scan"] = lineage_launches(mod)
+        want.update(norm_launches(mod))
         outs = y_k if isinstance(y_k, list) else [y_k]
         print(f"[8 lineage] {label}: kernels vs plain max_abs {mx:.4g} rel_l2 "
               f"{rel:.3g} (tol {tol}) | {ms:.4f} ms per forward | outputs "
@@ -3082,6 +3253,7 @@ def main() -> int:
     rel_g = {g: errors(gg_k[g], gg_p[g])[1] for g in LINEAGE_GRAD_GROUPS}
     want = {n: 0 for n in kernels}
     want["ssm_scan"] = want["ssm_scan_bwd"] = lineage_launches(v9)
+    want.update(norm_launches(v9))      # the forward's; the backward's are plain
     print(f"[8 lineage] SS2DCondV9 loss backward, fp32 masters: loss kernels "
           f"{loss_k:.6g} plain {loss_p:.6g} | by group (tol) "
           f"{ {g: f'{r:.3g} ({LINEAGE_GRAD_GROUPS[g][1]})' for g, r in rel_g.items()} }"
@@ -3153,7 +3325,8 @@ def main() -> int:
         "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
         "plain_ms": results[n]["plain_ms"], "bound_ms": results[n]["bound_ms"],
         "bound_by": results[n]["bound_by"],
-        "library_ms": results[n]["library_ms"]} for n, k in kernels.items()]}))
+        "library_ms": results[n]["library_ms"]} for n, k in kernels.items()
+        if n != PLAIN]}))
     print(f"[total] {time.perf_counter() - start:.1f} s, the build included | {card}")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The PyTorch port's hand-written CUDA kernels (K1-K4, the single-direction
 scan K5, the scan adjoint K6, the attention backward K2-bwd, LayerNorm /
-GroupNorm K7-LN / K7-GN, the fused GroupNorm + SiLU + 3x3 conv K8 and its
-bisect variants) against their plain PyTorch versions, on a CUDA card.
+GroupNorm K7-LN / K7-GN and their default-lowering variant, the fused
+GroupNorm + SiLU + 3x3 conv K8 and its bisect variants) against their plain
+PyTorch versions, on a CUDA card.
 Skipped without one. A backward through each autograd function must launch
 its kernels (it cannot silently take a plain path).
 
@@ -938,6 +939,165 @@ def test_k7_gn_refuses_a_plan_that_disagrees(dev):
             b.data_ptr(), part.data_ptr(), count.data_ptr(), ab[0].data_ptr(),
             ab[1].data_ptr(), 2, 2048, 128, 32, st["rows"], st["threads"] - 1,
             st["smem"], 1e-6, stream)
+
+
+# ---- K7's default-lowering variant (``io_affine``): the plain default
+# branch's function, the affine rounded in the I/O dtype ----
+
+def _ulp_keys(t):
+    """bf16 values as integers in the order of the values: adjacent bf16
+    values are one apart (+0 and -0 both 0)."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i >= 0, i, -32768 - i)
+
+
+def _default_branch_limits(y, want, fused, dtype):
+    """The variant's output y against the plain default branch's ``want``:
+    bf16 rel L2 <= 1e-3 and at most 1 ulp apart on >= 99.9% of the
+    elements, fp32 rel L2 <= 1e-6; and strictly closer to ``want`` than the
+    fp32-affine K7 output ``fused`` is (the default function, not the
+    fused one). Only the order of the fp32 statistics' sums differs."""
+    rel = _rel(y, want)
+    if dtype == torch.bfloat16:
+        near = ((_ulp_keys(y) - _ulp_keys(want)).abs() <= 1).float().mean().item()
+        assert rel <= 1e-3 and near >= 0.999, (rel, near)
+    else:
+        assert rel <= 1e-6, rel
+    assert rel < _rel(fused, want), (rel, _rel(fused, want))
+
+
+def _affine(dev, c, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (gen, 1 + 0.3 * torch.randn(c, generator=gen, device=dev),
+            0.5 * torch.randn(c, generator=gen, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", [(300, 320), (77, 640), (129, 1280),
+                                 (5, 2560), (1001, 2560), (1, 320),
+                                 (333, 960), (37, 72)])
+def test_k7_ln_default_variant(dev, m, c, dtype):
+    """K7-LN's variant against the plain default branch: the templated
+    widths (bf16 C = 320 / 640 / 1280 / 2560, fp32 320 / 640 / 1280) and
+    the general kernel (fp32 2560, C = 960 / 72), one row and ragged rows;
+    one launch a call, the same bits twice."""
+    gen, g, b = _affine(dev, c, 21)
+    x = (torch.randn(m, c, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+    n0 = norms.LN_KERNEL.launches
+    y = norms.layer_norm(x, g, b, 1e-5, io_affine=True)
+    assert norms.LN_KERNEL.launches == n0 + 1 and y.dtype == dtype
+    assert torch.equal(y, norms.layer_norm(x, g, b, 1e-5, io_affine=True))
+    _default_branch_limits(y, norms.layer_norm_ref(x, g, b, 1e-5, io_affine=True),
+                           norms.layer_norm(x, g, b, 1e-5), dtype)
+
+
+# (shape, paths): where a cluster holds an image, both paths; the temporal
+# resnets' (B, F * H * W, C) and a tall image on the two-pass path alone
+GN_DEFAULT_CASES = [((3, 100, 320), ("cluster", "two_pass")),
+                    ((2, 57, 960), ("cluster", "two_pass")),
+                    ((3, 300, 1280), ("cluster", "two_pass")),
+                    ((2, 2048, 128), ("cluster", "two_pass")),
+                    ((2, 105, 320), ("cluster", "two_pass")),
+                    ((4, 25 * 16 * 16, 320), ("two_pass",)),
+                    ((1, 6144, 640), ("two_pass",))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,path", [(s, p) for s, ps in GN_DEFAULT_CASES
+                                        for p in ps])
+def test_k7_gn_default_variant(dev, shape, path, dtype):
+    """K7-GN's variant on each path against the plain default branch (the
+    limits of ``_default_branch_limits``); one launch a call, the same bits
+    twice."""
+    n, m, c = shape
+    gen, g, b = _affine(dev, c, 22)
+    x = (torch.randn(*shape, generator=gen, device=dev) * 2 - 0.5).to(dtype)
+    plan = norms.gn_plan(n, m, c, 32, x.element_size(), path=path)
+    y, y2, fused = (torch.empty_like(x) for _ in range(3))
+    n0 = norms.GN_KERNEL.launches
+    norms.group_norm_launch(x, g, b, 32, 1e-6, y, plan, io_affine=True)
+    norms.group_norm_launch(x, g, b, 32, 1e-6, y2, plan, io_affine=True)
+    assert norms.GN_KERNEL.launches == n0 + 2 and torch.equal(y, y2)
+    norms.group_norm_launch(x, g, b, 32, 1e-6, fused, plan)
+    _default_branch_limits(y, norms.group_norm_ref(x, g, b, 32, 1e-6, io_affine=True),
+                           fused, dtype)
+
+
+@pytest.mark.cuda
+def test_k7_default_variant_gradients(dev):
+    """The variant's autograd functions launch the kernel once and
+    differentiate the plain default branch: gradients of x / gamma / beta
+    within 1e-3 rel L2 of autograd through it."""
+    _, g0, b0 = _affine(dev, 320, 23)
+    x0 = torch.randn(2, 3, 40, 320, device=dev) * 2 + 0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        for fn, kernel in (
+                (lambda x, g, b, **k: norms.layer_norm(x, g, b, 1e-5, **k),
+                 norms.LN_KERNEL),
+                (lambda x, g, b, **k: norms.group_norm(x, g, b, 32, 1e-6, **k),
+                 norms.GN_KERNEL)):
+            ref = (norms.layer_norm_ref if kernel is norms.LN_KERNEL else
+                   lambda x, g, b, **k: norms.group_norm_ref(x, g, b, 32, 1e-6, **k))
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (x0.to(dtype), g0, b0)]
+            cot = torch.randn(x0.shape, device=dev).to(dtype)
+            n0 = kernel.launches
+            got = torch.autograd.grad((fn(*ins, io_affine=True) * cot).sum(), ins)
+            assert kernel.launches == n0 + 1
+            want = torch.autograd.grad((ref(*ins, io_affine=True) * cot).sum(), ins)
+            assert max(_rel(p, q) for p, q in zip(got, want)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_default_modules_launch_k7_where_it_takes_the_call(dev):
+    """``LayerNormF32`` / ``GroupNorm32`` under the default lowering: a call
+    K7 takes launches the variant (``norm.kernel``), a bf16 affine too (the
+    wrapper casts it); C = 36 runs the plain code (``norm.plain``) with no
+    launch; an x at a misaligned offset raises, and runs nothing plain."""
+    from actalker_tpu_torch.models import common
+    from actalker_tpu_torch.utils import observability as obs
+
+    saved = common.norm_impl()
+    common.set_norm_impl("xla")
+    obs.reset()
+    try:
+        for kind, kernel in (("layer", norms.LN_KERNEL), ("group", norms.GN_KERNEL)):
+            for c, bf16_affine, taken in ((320, False, True), (36, False, False),
+                                          (320, True, True)):
+                m = (common.LayerNormF32(c) if kind == "layer"
+                     else common.GroupNorm32(c, 4 if c == 36 else 32)).to(dev)
+                if bf16_affine:
+                    m = m.bfloat16()
+                x = (torch.randn(2, 5, 6, c, device=dev) * 2 + 0.5).bfloat16()
+                n0 = kernel.launches
+                with obs.tracing(), torch.no_grad():
+                    y = m(x)
+                counters = obs.span_table()["counters"]
+                obs.reset()
+                assert kernel.launches == n0 + taken
+                assert counters == {"norm.kernel" if taken else "norm.plain": 1}
+                if kind == "layer":
+                    want = norms.layer_norm_ref(x, m.weight, m.bias, m.eps, io_affine=True)
+                else:
+                    want = norms.group_norm_ref(x, m.weight, m.bias, m.groups, m.eps,
+                                                io_affine=True)
+                if taken:
+                    assert _rel(y, want) <= 1e-3
+                else:
+                    assert torch.equal(y, want)
+            m = (common.LayerNormF32(320) if kind == "layer"
+                 else common.GroupNorm32(320)).to(dev)
+            off = torch.randn(1 + 2 * 5 * 6 * 320, device=dev).bfloat16()[1:]
+            with obs.tracing(), torch.no_grad(), pytest.raises(ValueError):
+                m(off.view(2, 5, 6, 320))
+            counters = obs.span_table()["counters"]
+            obs.reset()
+            assert "norm.plain" not in counters
+    finally:
+        common.set_norm_impl(saved)
+        obs.reset()
 
 
 # K5 at the edges of its two paths (``fwd_plan``): L = 1, L around the

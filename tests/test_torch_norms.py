@@ -11,7 +11,16 @@ on both sides, each switch restored afterwards.
 
 Tolerance rtol=1e-4, atol=1e-4 (fp32 on both sides; the statistics are
 sums over up to 32k elements taken in different orders).
+
+The default lowering's variant (``io_affine``): ``kernel_takes`` on fake
+CUDA tensors (``FakeTensorMode``: metadata alone), and, on the CPU, the
+modules under "xla" bit-equal to the plain formula they ran before K7 took
+the card's calls (forward and gradients), counting ``norm.plain``; the
+fused lowering unchanged; the autograd functions of the variant
+differentiating its plain twin.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +33,7 @@ from actalker_tpu.ops import norms as jnorms
 from actalker_tpu.ops.resconv import _gn_affine
 from actalker_tpu_torch.models import common
 from actalker_tpu_torch.ops import norms
+from actalker_tpu_torch.utils import observability
 from tests.test_torch_resconv import switches
 
 RTOL, ATOL = 1e-4, 1e-4
@@ -133,3 +143,181 @@ def test_switch_rejects_unknown_impl():
     with pytest.raises(ValueError):
         common.set_norm_impl("pallas")
     assert common.norm_impl() == before
+
+
+# ------------------------------------------- the default lowering's variant
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shape,dtype,device,transposed,groups,offset,taken", [
+    ((6, 320), BF16, "cuda", False, None, 0, True),
+    ((3, 7, 2560), F32, "cuda", False, None, 0, True),
+    ((6, 320), BF16, "cuda", False, None, 8, True),      # an aligned view
+    ((2, 10, 320), BF16, "cuda", False, 32, 0, True),
+    ((2, 3, 4, 4, 640), F32, "cuda", False, 32, 0, True),
+    ((6, 320), BF16, "cpu", False, None, 0, False),
+    ((2, 10, 320), F32, "cpu", False, 32, 0, False),
+    ((6, 36), BF16, "cuda", False, None, 0, False),      # C % 8 != 0
+    ((2, 5, 36), BF16, "cuda", False, 4, 0, False),
+    ((6, 320), torch.float16, "cuda", False, None, 0, False),
+    ((4, 6, 320), BF16, "cuda", True, None, 0, True),    # the wrapper copies it
+    ((6, 320), BF16, "cuda", False, None, 4, True),      # the wrapper refuses it
+    ((0, 320), BF16, "cuda", False, None, 0, False),     # empty
+    ((10, 320), BF16, "cuda", False, 32, 0, False),      # GN of rank 2
+    ((2, 5, 320), BF16, "cuda", False, 30, 0, False),    # no whole groups
+])
+def test_kernel_takes(shape, dtype, device, transposed, groups, offset, taken):
+    """The predicate reads x's metadata alone: device, dtype, C % 8, size,
+    rank and groups. Layout and alignment are the wrapper's to normalize or
+    refuse, not a way to the plain code."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        base = torch.empty(offset + math.prod(shape), dtype=dtype, device=device)
+        x = base.as_strided(shape, torch.empty(shape, device="meta").stride(),
+                            offset)
+        if transposed:
+            x = x.transpose(0, 1)
+        assert norms.kernel_takes(x, groups) is taken
+
+
+@pytest.mark.filterwarnings("ignore:Accessing the data pointer of FakeTensor")
+def test_kernel_takes_refuses_gamma_off_the_card_or_of_another_width():
+    """gamma / beta do not decide the route: a call K7 takes whose gamma is
+    off the card or of another width is refused by the wrapper with an
+    error, not run plain."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty(4, 320, dtype=BF16, device="cuda")
+        x3 = torch.empty(1, 4, 320, dtype=BF16, device="cuda")
+        g = torch.empty(320, device="cuda")
+        assert norms.kernel_takes(x) and norms.kernel_takes(x3, 32)
+        for gamma, beta in ((torch.empty(320), g),
+                            (g, torch.empty(640, device="cuda"))):
+            with pytest.raises(ValueError):
+                norms.layer_norm(x, gamma, beta, io_affine=True)
+            with pytest.raises(ValueError):
+                norms.group_norm(x3, gamma, beta, 32, io_affine=True)
+
+
+def _old_layer_norm(m, x):
+    """``LayerNormF32``'s plain branch as written before K7 took the card's
+    calls."""
+    mean = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
+    var = (x.float().square().mean(dim=-1, keepdim=True)
+           - mean.square()).clamp_min(0.0)
+    a = torch.rsqrt(var + m.eps) * m.weight.float()
+    b = m.bias.float() - mean * a
+    return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+def _old_group_norm(m, x):
+    """``GroupNorm32``'s plain branch as written before K7 took the card's
+    calls."""
+    n, c = x.shape[0], x.shape[-1]
+    dims = tuple(range(1, x.ndim - 1))
+    s1 = x.mean(dim=dims, dtype=torch.float32)
+    s2 = x.float().square().mean(dim=dims)
+    mean_g = s1.reshape(n, m.groups, -1).mean(-1)
+    var_g = (s2.reshape(n, m.groups, -1).mean(-1)
+             - mean_g.square()).clamp_min(0.0)
+    inv_c = torch.rsqrt(var_g + m.eps).repeat_interleave(c // m.groups, dim=1)
+    mean_c = mean_g.repeat_interleave(c // m.groups, dim=1)
+    a = inv_c * m.weight.float()
+    b = m.bias.float() - mean_c * a
+    shape = (n,) + (1,) * (x.ndim - 2) + (c,)
+    return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+
+
+def _module(kind, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = common.LayerNormF32(c) if kind == "layer" else common.GroupNorm32(c, eps=1e-6)
+    with torch.no_grad():
+        m.weight.copy_(1 + 0.3 * torch.randn(c, generator=g))
+        m.bias.copy_(0.5 * torch.randn(c, generator=g))
+    return m, g
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("kind,shape", [("layer", (4, 9, 320)),
+                                        ("layer", (5, 36)),
+                                        ("group", (2, 3, 4, 4, 320)),
+                                        ("group", (2, 5, 20))])
+def test_default_modules_on_the_cpu_keep_the_plain_formula(kind, shape, dtype):
+    """Under "xla" a CPU call is the plain formula bit for bit, forward and
+    gradients of x / weight / bias, and counts one ``norm.plain``."""
+    m, g = _module(kind, shape[-1], 5)
+    old = _old_layer_norm if kind == "layer" else _old_group_norm
+    x = (2 * torch.randn(*shape, generator=g) + 0.5).to(dtype).requires_grad_(True)
+    cot = torch.randn(*shape, generator=g).to(dtype)
+    saved = common.norm_impl()
+    common.set_norm_impl("xla")
+    observability.reset()
+    try:
+        with observability.tracing():
+            y = m(x)
+        counters = observability.span_table()["counters"]
+    finally:
+        common.set_norm_impl(saved)
+        observability.reset()
+    want = old(m, x)
+    assert y.dtype == dtype and torch.equal(y, want)
+    assert counters == {"norm.plain": 1}
+    ins = (x, m.weight, m.bias)
+    got = torch.autograd.grad((y * cot).sum(), ins)
+    for a, w in zip(got, torch.autograd.grad((want * cot).sum(), ins)):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("kind", ["layer", "group"])
+def test_fused_modules_on_the_cpu_are_unchanged(kind):
+    """Under "fused" a CPU call is the fp32-affine plain version of K7, bit
+    for bit, and counts one ``norm.plain``."""
+    m, g = _module(kind, 320, 6)
+    x = (2 * torch.randn(2, 4, 6, 320, generator=g) + 0.5).bfloat16()
+    if kind == "layer":
+        want = norms.layer_norm_ref(x, m.weight, m.bias, m.eps)
+    else:
+        want = norms.group_norm_ref(x, m.weight, m.bias, m.groups, m.eps)
+    saved = common.norm_impl()
+    common.set_norm_impl("fused")
+    observability.reset()
+    try:
+        with observability.tracing(), torch.no_grad():
+            y = m(x)
+        counters = observability.span_table()["counters"]
+    finally:
+        common.set_norm_impl(saved)
+        observability.reset()
+    assert torch.equal(y, want) and counters == {"norm.plain": 1}
+    # the two lowerings are two functions: bf16 output rounded once or
+    # three times
+    assert not torch.equal(want, (_old_layer_norm if kind == "layer"
+                                  else _old_group_norm)(m, x))
+
+
+@pytest.mark.parametrize("kind", ["layer", "group"])
+def test_variant_autograd_functions_differentiate_the_plain_twin(kind):
+    """``layer_norm`` / ``group_norm`` with ``io_affine`` go through their
+    autograd function when a gradient is needed; on the CPU its forward is
+    the plain twin and its backward differentiates it: the same bits as
+    autograd through the twin."""
+    rng = np.random.default_rng(7)
+    x, g, b = _rand(rng, 2, 12, 64, scale=2.0), _rand(rng, 64), _rand(rng, 64)
+    ins = [t.to(torch.bfloat16).float().requires_grad_(True) for t in _t(x, g, b)]
+    if kind == "layer":
+        fn = lambda *a, **k: norms.layer_norm(*a, **k)            # noqa: E731
+        ref = lambda *a: norms.layer_norm_ref(*a, io_affine=True)  # noqa: E731
+    else:
+        fn = lambda *a, **k: norms.group_norm(*a, 8, **k)          # noqa: E731
+        ref = lambda *a: norms.group_norm_ref(*a, 8, io_affine=True)  # noqa: E731
+    out = fn(*ins, io_affine=True)
+    assert "NormFn" in type(out.grad_fn).__name__
+    want = ref(*ins)
+    assert torch.equal(out, want)
+    cot = torch.from_numpy(_rand(rng, 2, 12, 64))
+    got = torch.autograd.grad((out * cot).sum(), ins)
+    for a, w in zip(got, torch.autograd.grad((want * cot).sum(), ins)):
+        assert torch.equal(a, w)

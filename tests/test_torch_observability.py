@@ -259,6 +259,58 @@ def test_micro_unet_forward_spans(micro_unet):
     assert all(p != "unet.norm" for _, p in parents)
 
 
+@pytest.mark.parametrize("impl", ["xla", "fused"])
+def test_norm_counters_and_the_span_table(micro_unet, impl):
+    """Every norm call counts ``norm.kernel`` (it launched K7) or
+    ``norm.plain`` (it ran the plain code): on the CPU all are plain, under
+    either lowering, one a ``unet.norm`` span; ``profile_step``'s span
+    table prints the counters."""
+    unet, args = micro_unet
+    seen, hooks = calls_by_class(unet, (common.GroupNorm32, common.LayerNormF32))
+    saved = common.norm_impl()
+    common.set_norm_impl(impl)
+    try:
+        with O.tracing(), torch.no_grad():
+            unet(*args)
+    finally:
+        common.set_norm_impl(saved)
+        for h in hooks:
+            h.remove()
+    table = O.span_table()
+    norms_called = seen["GroupNorm32"][0] + seen["LayerNormF32"][0]
+    assert norms_called == table["spans"]["unet.norm"]["n"] > 0
+    assert "norm.kernel" not in table["counters"]
+    assert table["counters"]["norm.plain"] == norms_called
+    lines = profile_step.span_lines(table, {})
+    assert any(line.split()[:3] == ["counter", "norm.plain", str(norms_called)]
+               for line in lines)
+    assert any(line.split()[:2] == ["unet.norm", str(norms_called)] for line in lines)
+
+
+def test_a_micro_step_runs_the_norms_the_chip_smoke_derives(micro_trainer):
+    """``chip_smoke.step_norm_launches`` (a micro-step's K7 launches and
+    plain norm calls on the card) counts each norm of the UNet's
+    checkpointed blocks twice, its others and the heads' once: on the CPU
+    every one of those calls is plain, so their sum is the micro-step's
+    ``norm.plain``. The heads' one plain call on the card is vasa_proj's
+    (1018 channels, not a multiple of 8)."""
+    import chip_smoke
+
+    trainer, batches = micro_trainer
+    mods = trainer.modules
+    want = chip_smoke.step_norm_launches(mods["unet"],
+                                         [mods[h] for h in chip_smoke.HEADS])
+    with O.tracing():
+        trainer.step(next(batches), generator=torch.Generator().manual_seed(0))
+    assert O.span_table()["counters"]["norm.plain"] == sum(want.values())
+    assert want[chip_smoke.PLAIN] == 1 and want["gn_silu_conv3x3"] == 0
+    blocks = chip_smoke.norm_launches(*mods["unet"].down_blocks, mods["unet"].mid_block,
+                                      *mods["unet"].up_blocks)
+    once = chip_smoke.norm_launches(mods["unet"], *(mods[h] for h in chip_smoke.HEADS))
+    assert blocks["layer_norm"] > 0 and want == {
+        n: blocks[n] + once[n] for n in chip_smoke.NORM_ENTRIES}
+
+
 def test_trainer_step_spans(micro_trainer):
     trainer, batches = micro_trainer
     with O.tracing():
@@ -340,8 +392,10 @@ def test_gather_counters_against_a_hand_count(frac):
         active = (12 + tails[0] + l + tails[1]) * b
     lt = max(k + t for k, t in zip(caps, tails))
     selected = (12 + (0 if frac is not None else l)) * b
+    # and the block's out-norm, the plain code on the CPU
     assert c == {"ssm.k1_slots": lt * b * 2, "ssm.k1_active": active,
-                 "ssm.gather_slots": sum(caps) * b, "ssm.gather_selected": selected}
+                 "ssm.gather_slots": sum(caps) * b, "ssm.gather_selected": selected,
+                 "norm.plain": 1}
     if frac is not None:
         assert 100.0 * active / (lt * b * 2) == pytest.approx(100.0 * 40 / 88)
 
