@@ -22,15 +22,33 @@ runs the adjoint kernel K6 once per group.
 
 Static-capacity gather (``capacity_frac``, the JAX package's speed path of
 modes 0 and 1): given an upper bound on each branch's selected fraction,
-the block scans a compact buffer instead of every token. A branch's K =
-ceil(frac * L) (rounded up to 8) slots take its selected tokens in token
-order (a cumsum slot assignment, the reference's ``masked_select`` order),
-then its tail; K1 walks max(K + tail) rows, and the outputs are scattered
-back. A branch switched off by its gate (frac 0) scans its tail only. More
-selected tokens than K break the contract: ``capacity_overflow="nan"``
-poisons the output of each batch row that overflows, ``"drop"`` leaves the
-extra tokens unscanned. The JAX package poisons its whole call, which under
-its serving vmap is one identity; here the rows of one identity share its
+the block scans a compact buffer instead of every token, and works in x's
+own (B, L) token order. At a token a branch does not select, the branch's
+output is its input projection, so with W1, W2 the branches' ``in_proj``
+weights
+
+    y = x (W1 + W2)^T + sum_b sum_{r selected by b} (scan_b[r] - x[r] W_b^T)
+
+The first term is one GEMM with the weights summed in fp32 and rounded
+once to x's dtype: the product is rounded once, and the summed weight's
+own rounding adds about as much again (``test_torch_kernels_cuda``'s
+res-72 block holds the bf16 error against fp32 to the separate products'
+error).
+A branch's K = ceil(frac * L) (rounded up to 8) slots take its selected
+tokens in token order (a cumsum slot assignment, the reference's
+``masked_select`` order), then its tail; those rows of x alone are
+gathered and projected by W_b into K1's arranged buffer, and K1 walks
+max(K + tail) rows. Each branch then adds its scan's difference from the
+projection, formed in fp32 and rounded once, into y at its selected tokens
+in one indexed add (``ops.selective_scan.gather_delta_add``, one kernel
+launch on the card; an empty slot writes nothing, and a token both
+branches select takes both). No (L, B)-ordered or full-width copy is made:
+y goes to the out-norm (K7 on the card) as it is. A branch switched off by
+its gate (frac 0) scans its tail only. More selected tokens than K break
+the contract: ``capacity_overflow="nan"`` poisons the output of each batch
+row that overflows, ``"drop"`` leaves the extra tokens at their
+projection. The JAX package poisons its whole call, which under its
+serving vmap is one identity; here the rows of one identity share its
 mask, so an identity that overflows turns NaN whole and the others of its
 call stay finite.
 
@@ -53,7 +71,8 @@ from actalker_tpu_torch.models.attention_blocks import (
     downsample_ip_mask, expand_mask_rows)
 from actalker_tpu_torch.models.common import LayerNormF32, Linear
 from actalker_tpu_torch.ops.selective_scan import (
-    LANES, MASK_LANE, ssm_scan, ssm_scan_arranged, ssm_scan_grouped)
+    LANES, MASK_LANE, gather_delta_add, ssm_scan, ssm_scan_arranged,
+    ssm_scan_grouped)
 from actalker_tpu_torch.utils.observability import count, enabled
 
 
@@ -176,7 +195,7 @@ class SS2DCondV10(nn.Module):
     def forward(self, x, id_emb, audio_cond, exp_cond, audio_mask, exp_mask):
         """x (B, L, C) tokens; id_emb (B, 1, d_cond); audio_cond (B, Sa,
         d_cond); exp_cond (B, Se, d_cond); masks (Bm, 1, H, W) or None."""
-        b, l, _ = x.shape
+        b, l, c = x.shape
         dt, di = x.dtype, self.d_inner
         branches = []
         if self.use_audio:
@@ -211,14 +230,13 @@ class SS2DCondV10(nn.Module):
                 sels.append(expand_mask_rows(m, b))
             units.append(getattr(self, unit))
         ntoks = [t.shape[1] for t in tails]
-        w_in = torch.cat([getattr(self, f"in_proj{name}").weight
-                          for name, *_ in branches]).to(dt)
+        ws = [getattr(self, f"in_proj{name}").weight for name, *_ in branches]
         caps = self._capacities([br[0] for br in branches],
                                 [br[3] for br in branches], l)
-        poison = None
         if all(k == l for k in caps):
             # masked-dense: arranged (L, B, .) buffers of the token rows,
             # then each branch's tail
+            w_in = torch.cat(ws).to(dt)
             lt = l + max(ntoks)
             xz = x.new_zeros(lt, b, nb * di)
             xz[:l] = F.linear(x.transpose(0, 1), w_in)
@@ -229,55 +247,64 @@ class SS2DCondV10(nn.Module):
                 active[:l, :, bi] = sels[bi].transpose(0, 1)
                 active[l:l + ntoks[bi], :, bi] = True
             y_g = self._scan(xz, active, units)
-            outs = [torch.where(active[:l, :, bi, None], self._branch_sum(y_g, bi, l),
+            y = sum(torch.where(active[:l, :, bi, None], self._branch_sum(y_g, bi, l),
                                 xz[:l, :, bi * di:(bi + 1) * di])
-                    for bi in range(nb)]
-        else:
-            xz_full = F.linear(x.transpose(0, 1), w_in)        # (l, b, nb*di)
-            lt = max(k + t for k, t in zip(caps, ntoks))
-            u_g = x.new_zeros(lt, b, nb * di)
-            active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
-            gathered = []
-            overflow = torch.zeros(b, dtype=torch.bool, device=x.device)
-            for bi in range(nb):
-                k, cols = caps[bi], slice(bi * di, (bi + 1) * di)
-                rows, act = _compact_rows(sels[bi], k)          # (k, b) each
-                if k < l:   # the capacity contract, checked on the device
-                    overflow = overflow | (sels[bi].sum(1) > k)
-                xz_b = xz_full[:, :, cols].reshape(l * b, di)
-                gath = xz_b.index_select(0, rows.clamp_max(l * b - 1).reshape(-1)
-                                         ).reshape(k, b, di)
-                # an empty slot read another row (the clamp): zero it, so a
-                # poisoned row cannot reach the scan of the others
-                gath = torch.where(act[..., None], gath, 0.0)
-                u_g[:k, :, cols] = gath
-                u_g[k:k + ntoks[bi], :, cols] = tails[bi].transpose(0, 1)
-                active[:k, :, bi] = act
-                active[k:k + ntoks[bi], :, bi] = True
-                gathered.append((xz_b, gath, rows, act))
-            y_g = self._scan(u_g, active, units)
-            outs = []
-            for bi, (xz_b, gath, rows, act) in enumerate(gathered):
-                k = caps[bi]
-                upd = torch.where(act[..., None], self._branch_sum(y_g, bi, k), gath)
-                # slots past the active count write a scratch row, dropped
-                out = torch.cat([xz_b, xz_b.new_zeros(1, di)])
-                out.index_copy_(0, rows.reshape(-1), upd.reshape(k * b, di))
-                outs.append(out[:l * b].reshape(l, b, di))
-            if self.capacity_overflow == "nan":
-                # per batch row, so that rows which keep their budget (the
-                # other identities of a batched serving call) stay finite
-                poison = torch.where(overflow, float("nan"), 0.0).to(dt)
+                    for bi in range(nb))
+            self._count(lt, b, nb, active, caps)
+            return self._whole(y.transpose(0, 1))               # (b, l, di)
+
+        # gather, in x's own (B, L) order: at a token a branch does not scan,
+        # its output is its projection, so y starts as one GEMM with the
+        # branches' weights summed in fp32 (or wider) and rounded once
+        acc = torch.promote_types(dt, torch.float32)
+        y = F.linear(x, sum(w.to(acc) for w in ws).to(dt))      # (b, l, di)
+        x_rows = x.reshape(b * l, c)
+        lt = max(k + t for k, t in zip(caps, ntoks))
+        u_g = x.new_zeros(lt, b, nb * di)
+        active = torch.zeros(lt, b, nb, dtype=torch.bool, device=x.device)
+        gathered = []
+        overflow = torch.zeros(b, dtype=torch.bool, device=x.device)
+        for bi in range(nb):
+            k, sl = caps[bi], slice(bi * di, (bi + 1) * di)
+            tok, act = _compact_rows(sels[bi], k)               # (k, b) each
+            if k < l:   # the capacity contract, checked on the device
+                overflow = overflow | (sels[bi].sum(1) > k)
+            # each slot's token (an empty slot's is zeroed, so a poisoned
+            # row cannot reach the scan of the others), projected by the
+            # branch's own weight alone
+            x_g = x_rows.index_select(0, tok.reshape(-1))
+            x_g.masked_fill_(~act.reshape(-1, 1), 0.0)
+            # projected straight into K1's buffer (beta 0: not read)
+            u_g[:k, :, sl].view(k * b, di).addmm_(x_g, ws[bi].to(dt).t(), beta=0)
+            u_g[k:k + ntoks[bi], :, sl] = tails[bi].transpose(0, 1)
+            active[:k, :, bi] = act
+            active[k:k + ntoks[bi], :, bi] = True
+            gathered.append((tok, act))
+        y_g = self._scan(u_g, active, units)
+        for bi, (tok, act) in enumerate(gathered):
+            # at its selected tokens the branch's scan replaces its
+            # projection: add the difference, formed in fp32 and rounded
+            # once; a token both branches select takes both
+            k = caps[bi]
+            gather_delta_add(y, y_g[:k, :, 2 * bi * di:(2 * bi + 2) * di],
+                             u_g[:k, :, bi * di:(bi + 1) * di], tok, act)
+        self._count(lt, b, nb, active, caps)
+        out = self._whole(y)
+        if self.capacity_overflow == "nan":
+            # per batch row, so that rows which keep their budget (the
+            # other identities of a batched serving call) stay finite
+            out.masked_fill_(overflow[:, None, None], float("nan"))
+        return out
+
+    @staticmethod
+    def _count(lt: int, b: int, nb: int, active, caps: List[int]) -> None:
+        """The block's K1 and gather counters (module docstring)."""
         if enabled():
             count("ssm.k1_slots", lt * b * nb)
             count("ssm.k1_active", active)
             count("ssm.gather_slots", sum(caps) * b)
             count("ssm.gather_selected", sum(active[:k, :, bi].sum()
                                              for bi, k in enumerate(caps)))
-        y = sum(outs)
-        if poison is not None:
-            y = y + poison[None, :, None]
-        return self._whole(y.transpose(0, 1))                   # (b, l, di)
 
     def _capacities(self, names: List[str], masks, l: int) -> List[int]:
         """Token slots per branch: L (every token) without a fraction or a
@@ -338,9 +365,10 @@ def _compact_rows(sel: torch.Tensor, k: int):
     """The gather's slot assignment for one branch: ``sel`` (B, L) bool ->
     (rows, active), each (k, B). Slot j of column c takes the j-th selected
     token of row c in token order (a cumsum, stable: the reference's
-    ``masked_select`` order); ``rows`` is that token's row of the flattened
-    arranged (L * B, .) buffer, L * B (a scratch row) for a slot no token
-    fills, and tokens past k are dropped. No host synchronization."""
+    ``masked_select`` order); ``rows`` is that token's row c * L + t of the
+    (B * L, .) tokens, the column's last token for a slot no token fills
+    (``active`` False), and tokens past k are dropped. No host
+    synchronization."""
     b, l = sel.shape
     pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1
     slots = torch.where(sel & (pos < k), pos, torch.full_like(pos, k)).long()
@@ -348,6 +376,5 @@ def _compact_rows(sel: torch.Tensor, k: int):
     tok.scatter_(1, slots, torch.arange(l, device=sel.device).expand(b, l))
     tok = tok[:, :k].t()                                        # (k, b)
     act = tok < l
-    cols = torch.arange(b, device=sel.device)
-    rows = torch.where(act, tok * b + cols, torch.full_like(tok, l * b))
+    rows = torch.arange(b, device=sel.device) * l + tok.clamp_max(l - 1)
     return rows, act

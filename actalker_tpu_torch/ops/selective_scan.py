@@ -1,6 +1,7 @@
 """Selective scan (Mamba S6 recurrence): plain PyTorch twins, the grouped
 CUDA kernel K1 (forward), the single-direction kernel K5 (forward) and the
-adjoint kernel K6 (backward).
+adjoint kernel K6 (backward); and the SSM gather's scatter back
+(``gather_delta_add``: ``csrc/gather_delta_add.cu``).
 
 Twin of ``actalker_tpu/ops/selective_scan.py`` (the plain ``seq`` /
 ``blocked`` scans) and of ``ssm_scan_grouped``, ``ssm_scan_arranged``,
@@ -53,6 +54,11 @@ BWD_KERNEL = Kernel(
 ARRANGED_KERNEL = Kernel(
     "ssm_scan",
     replaces="actalker_tpu/ops/selective_scan_pallas.py:75")
+# the SSM gather's scatter back, a port kernel with no TPU twin: the JAX
+# package scatters with XLA there
+DELTA_KERNEL = Kernel(
+    "gather_delta_add",
+    replaces="actalker_tpu/models/ssm.py:509 (XLA scatter)")
 _BT = 8           # batch rows per tile of the arranged layout
 
 
@@ -671,3 +677,91 @@ def ssm_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
     u_a, dt_a, bc_a = arrange_ssm_inputs(u, delta, Bmat, Cmat, lc=lc)
     y = ssm_scan_arranged(u_a, dt_a, bc_a, A, D, delta_bias, reverse=reverse)
     return y[:l, :b, :d].transpose(0, 1)
+
+
+def gather_delta_add_ref(y, s, u, tok, act) -> None:
+    """Plain version of ``gather_delta_add`` (the difference in fp32, or
+    wider, rounded to y's dtype, then an indexed add; an inactive slot adds
+    an exact zero)."""
+    di = y.shape[-1]
+    acc = torch.promote_types(y.dtype, torch.float32)
+    delta = s.unflatten(-1, (2, di)).sum(-2, dtype=acc).sub_(u).to(y.dtype)
+    delta.masked_fill_(~act[..., None], 0.0)
+    y.view(-1, di).index_add_(0, tok.reshape(-1), delta.view(-1, di))
+
+
+def _rows_ok(t, k: int, b: int, width: int, vec: int) -> bool:
+    """t (k, b, width): rows of ``width`` contiguous elements at one stride,
+    a multiple of the 16-byte vector, on a 16-byte boundary."""
+    return (tuple(t.shape) == (k, b, width) and t.stride(2) == 1
+            and t.stride(0) == t.stride(1) * b and t.stride(1) % vec == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def _delta_add_launch(y, s, u, tok, act) -> None:
+    """``gather_delta_add``'s kernel launch on CUDA tensors, no autograd."""
+    tok, act = tok.contiguous(), act.contiguous()      # (K, B): small
+    check_cuda_tensors("gather_delta_add", (y, tok, act), {
+        "y": _ACT, "tok": (torch.int64,), "act": (torch.bool,)})
+    k, b, _ = s.shape
+    di, vec = y.shape[-1], 16 // y.element_size()
+    check(di % vec == 0 and s.dtype == u.dtype == y.dtype
+          and _rows_ok(s, k, b, 2 * di, vec) and _rows_ok(u, k, b, di, vec),
+          f"gather_delta_add: s {tuple(s.shape)} / u {tuple(u.shape)} must be "
+          f"rows of 2 D / D at 16-byte strides in y's dtype (D = {di})")
+    check(tuple(tok.shape) == tuple(act.shape) == (k, b),
+          f"gather_delta_add: tok / act {tuple(tok.shape)} / {tuple(act.shape)}")
+    if k * b == 0:
+        return
+    fn = ("gather_delta_add_bf16" if y.dtype == torch.bfloat16
+          else "gather_delta_add_f32")
+    DELTA_KERNEL.launch(fn, "pppppiiiip", ptr(y), ptr(s), ptr(u), ptr(tok),
+                        ptr(act), k * b, di, s.stride(1), u.stride(1),
+                        stream_of(y))
+
+
+class GatherDeltaAddFn(torch.autograd.Function):
+    """``gather_delta_add`` under autograd, in place on y: the forward is
+    the kernel on CUDA tensors (the plain version on the CPU); the backward
+    is plain gathers: y's gradient passes through, each scan direction's is
+    y's gradient at the slot's token where the slot is active, u's its
+    negation."""
+
+    @staticmethod
+    def forward(ctx, y, s, u, tok, act):
+        if y.is_cuda:
+            _delta_add_launch(y, s, u, tok, act)
+        else:
+            gather_delta_add_ref(y, s, u, tok, act)
+        ctx.mark_dirty(y)
+        ctx.save_for_backward(tok, act)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        tok, act = ctx.saved_tensors
+        di = dy.shape[-1]
+        g = dy.reshape(-1, di)[tok.reshape(-1)].view(*tok.shape, di)
+        g = g.masked_fill(~act[..., None], 0.0)
+        return dy, torch.cat([g, g], dim=-1), -g, None, None
+
+
+def gather_delta_add(y: torch.Tensor,      # (..., D) tokens, updated in place
+                     s: torch.Tensor,      # (K, B, 2 D) two scan directions
+                     u: torch.Tensor,      # (K, B, D) the slots' projections
+                     tok: torch.Tensor,    # (K, B) int64 rows of y (..., D)
+                     act: torch.Tensor,    # (K, B) bool
+                     ) -> None:
+    """At every active slot r: y[tok[r]] += (s[r, :D] + s[r, D:]) - u[r],
+    over y's rows of D (y contiguous), the sums in fp32 and one rounding to
+    y's dtype on the store; an inactive slot writes nothing. The active
+    slots name distinct rows. s and u may be strided views of K1's output
+    and input (rows at one stride each). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/gather_delta_add.cu`` (bf16 /
+    fp32; under autograd through ``GatherDeltaAddFn``) or raise."""
+    if not y.is_cuda:
+        gather_delta_add_ref(y, s, u, tok, act)
+    elif needs_grad(y, s, u):
+        GatherDeltaAddFn.apply(y, s, u, tok, act)
+    else:
+        _delta_add_launch(y, s, u, tok, act)

@@ -1,8 +1,9 @@
 """The PyTorch port's hand-written CUDA kernels (K1-K4, the single-direction
 scan K5, the scan adjoint K6, the attention backward K2-bwd, LayerNorm /
 GroupNorm K7-LN / K7-GN and their default-lowering variant, the fused
-GroupNorm + SiLU + 3x3 conv K8 and its bisect variants) against their plain
-PyTorch versions, on a CUDA card.
+GroupNorm + SiLU + 3x3 conv K8 and its bisect variants, the SSM gather's
+delta add and overflow poison) against their plain PyTorch versions, on a
+CUDA card.
 Skipped without one. A backward through each autograd function must launch
 its kernels (it cannot silently take a plain path).
 
@@ -1207,3 +1208,148 @@ def test_k5_refuses_a_plan_that_disagrees(dev):
                           (plan["seg_len"] + 8, plan["smem"])):
         with pytest.raises(RuntimeError):
             launch(seg_len, smem)
+
+
+@pytest.mark.cuda
+def test_ssm_gather_order_res72(dev, monkeypatch):
+    """One res-72 control block of the 576 px mode-0 call in bf16: x (100,
+    5184, 320), a 320 px face box of a 576 px frame (1600 of 5184 tokens,
+    31%) under a 5/16 budget, the expression branch gated off; lineage
+    recipe weights, seeded. Against the (L, B)-ordered formulation it
+    replaced, in fp32 with the plain scan on the same (bf16) weights and
+    inputs: relative L2 under 1e-2 (bf16 activations and weights, each
+    rounding 2^-9 relative, a few deep: projections, scan output, delta,
+    out-norm, out-projection; about 4e-3 on the CPU at B = 4) and at most
+    1.25 x the old formulation's own bf16 error. The out-norm's K7 launch
+    takes the block's (B, L, d_inner) tokens themselves, with no copy (the
+    old formulation's transposed tokens were copied first), and the scan's
+    delta is one launch (the poison, a masked fill, none)."""
+    import copy
+
+    from actalker_tpu_torch.io.init import cast_params_bf16_, lineage_init_
+    from actalker_tpu_torch.models import ssm
+    # beside this file (pytest puts its directory on the path; the card's
+    # machine has another package named ``tests``)
+    from ssm_gather_reference import old_gather_forward
+
+    b, l, d = 100, 5184, 320
+    with torch.device("meta"):
+        blk = ssm.SS2DCondV10(d, d_cond=1024, capacity_frac=(5 / 16, 0.0))
+    blk = cast_params_bf16_(lineage_init_(blk, seed=0, device=dev).eval())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()  # noqa: E731
+    box = torch.zeros(1, 1, 576, 576, device=dev)
+    box[..., 128:448, 64:384] = 1.0
+    args = (rn(b, l, d), rn(b, 1, 1024), rn(b, 32, 1024), rn(b, 1, 1024),
+            box, torch.zeros_like(box))
+    fed, launched = [], []
+    blk.out_norm.register_forward_pre_hook(lambda m, a: fed.append(a[0].data_ptr()))
+    real_launch = norms._ln_launch
+
+    def spy(x, *a, **k):
+        launched.append((x.data_ptr(), x.is_contiguous()))
+        return real_launch(x, *a, **k)
+
+    monkeypatch.setattr(norms, "_ln_launch", spy)
+    n0 = ss.DELTA_KERNEL.launches
+    with torch.no_grad():
+        new = blk(*args)
+        assert launched == [(fed[0], True)]
+        # the audio branch's delta; the gated-off branch adds none
+        assert ss.DELTA_KERNEL.launches == n0 + 1
+        old = old_gather_forward(blk, *args)
+        assert launched[1][0] != fed[1]              # its transposed tokens copied
+        blk32 = copy.deepcopy(blk).float()
+        monkeypatch.setattr(ssm, "ssm_scan_grouped", ss.ssm_scan_grouped_ref)
+        ref = old_gather_forward(blk32, *(a.float() for a in args))
+    e_new, e_old = _rel(new, ref), _rel(old, ref)
+    assert e_new < 1e-2 and e_new <= 1.25 * e_old, (e_new, e_old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,b,di,groups", [(37, 5, 640, 4), (3, 1, 1280, 2), (160, 100, 2560, 4)])
+def test_gather_delta_add(dev, dtype, k, b, di, groups):
+    """The gather's scatter back against its definition: at active slots,
+    y[tok] + ((s0 + s1) - u) in fp32 rounded once, bit for bit; inactive
+    slots and the other rows untouched; s a strided view of a grouped scan
+    output (the second branch's two directions), u a branch's columns of
+    K1's input (rows at a stride where there are two branches). The plain
+    version agrees bit for bit in fp32; in bf16 it rounds the difference
+    first, so it differs by at most that rounding (2^-8 relative) where a
+    slot is active."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 4 * k * b
+    y = torch.randn(n, di, generator=gen, device=dev).to(dtype)
+    y_g = torch.randn(k, b, groups * di, generator=gen, device=dev).to(dtype)
+    s = y_g[:, :, (groups - 2) * di:]
+    # u as the block passes it: a branch's columns of K1's input rows
+    u = torch.randn(k, b, groups // 2 * di, generator=gen, device=dev).to(dtype)[..., -di:]
+    tok = torch.randperm(n, generator=gen, device=dev)[:k * b].view(k, b)
+    act = torch.rand(k, b, generator=gen, device=dev) < 0.8
+    want = y.float().clone()
+    upd = want[tok] + ((s[..., :di].float() + s[..., di:].float()) - u.float())
+    want[tok[act]] = upd[act]
+    got = y.clone()
+    n0 = ss.DELTA_KERNEL.launches
+    ss.gather_delta_add(got, s, u, tok, act)
+    assert ss.DELTA_KERNEL.launches == n0 + 1
+    assert torch.equal(got, want.to(dtype))
+    plain = y.clone()
+    ss.gather_delta_add_ref(plain, s, u, tok, act)
+    if dtype == torch.float32:
+        assert torch.equal(plain, got)
+    else:
+        assert _rel(plain, got) < 2 ** -8
+
+
+@pytest.mark.cuda
+def test_gather_delta_add_raises_on_bad_operands(dev):
+    """A wrong width, a strided u, int32 tokens, fp16 tokens: raised, not
+    run plain."""
+    y = torch.zeros(64, 80, device=dev, dtype=torch.bfloat16)
+    s = torch.zeros(2, 3, 160, device=dev, dtype=torch.bfloat16)
+    tok = torch.arange(6, device=dev).view(2, 3)
+    act = torch.ones(2, 3, dtype=torch.bool, device=dev)
+    u = torch.zeros(2, 3, 80, device=dev, dtype=torch.bfloat16)
+    for bad in (dict(s=s[..., 1:161 - 1].contiguous()[..., :158]),
+                dict(u=u.transpose(0, 1).contiguous().transpose(0, 1)),
+                dict(tok=tok.int()),
+                dict(y=y.half(), s=s.half(), u=u.half())):
+        args = dict(y=y, s=s, u=u, tok=tok, act=act) | bad
+        with pytest.raises(ValueError):
+            ss.gather_delta_add(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_delta_add_under_autograd(dev, dtype):
+    """A call that autograd records launches the kernel too (through
+    ``GatherDeltaAddFn``): the same values as the call without grad, bit
+    for bit, and the gradients of y, s and u those of autograd through the
+    plain version (exact: the backward is gathers and a negation)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k, b, di, n = 24, 3, 640, 200
+    y0 = torch.randn(n, di, generator=gen, device=dev).to(dtype)
+    s0 = torch.randn(k, b, 4 * di, generator=gen, device=dev).to(dtype)
+    u0 = torch.randn(k, b, 2 * di, generator=gen, device=dev).to(dtype)
+    tok = torch.randperm(n, generator=gen, device=dev)[:k * b].view(k, b)
+    act = torch.rand(k, b, generator=gen, device=dev) < 0.7
+    cot = torch.randn(n, di, generator=gen, device=dev).to(dtype)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in (y0, s0, u0)]
+        y = ins[0] * 1           # a non-leaf, as the block's projection is
+        fn(y, ins[1][..., 2 * di:], ins[2][..., di:], tok, act)
+        y.backward(cot)
+        return y.detach(), [t.grad for t in ins]
+
+    n0 = ss.DELTA_KERNEL.launches
+    got, g_got = run(ss.gather_delta_add)
+    assert ss.DELTA_KERNEL.launches == n0 + 1
+    want = y0.clone()
+    ss.gather_delta_add(want, s0[..., 2 * di:], u0[..., di:], tok, act)
+    assert torch.equal(got, want)
+    _, g_plain = run(ss.gather_delta_add_ref)
+    for a, p in zip(g_got, g_plain, strict=True):
+        assert torch.equal(a, p)

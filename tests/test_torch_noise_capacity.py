@@ -295,10 +295,10 @@ def test_compact_rows_keeps_token_order_and_drops_overflow():
                         [0, 0, 0, 0, 0, 0]], dtype=torch.bool)
     rows, act = ssm._compact_rows(sel, 3)
     b, l = sel.shape
-    tok = torch.where(act, rows // b, torch.full_like(rows, -1)).t()
+    tok = torch.where(act, rows % l, torch.full_like(rows, -1)).t()
     assert tok.tolist() == [[1, 2, 4], [0, -1, -1], [-1, -1, -1]]
-    assert (rows[~act] == l * b).all()
-    assert ((rows[act] % b) == torch.arange(b).expand(3, b)[act]).all()
+    assert (rows[~act] % l == l - 1).all()
+    assert ((rows // l) == torch.arange(b).expand(3, b)).all()
 
 
 @pytest.mark.parametrize("overflow", ["nan", "drop"])
