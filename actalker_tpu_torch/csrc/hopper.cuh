@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and products, register hand-over
+// TMA tile loads and stores, wgmma descriptors and products, register hand-over
 // between warpgroups, ldmatrix and cp.async copies, the SFU's exp2 / log2,
 // and the host-side encoding of TMA tensor maps.
 //
@@ -88,6 +88,37 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(b), "r"(bar)
       : "memory");
+}
+
+// a box of a 3-d tensor map at (c0, r0, b) from shared memory (128-byte
+// aligned) to device memory; parts of the box past the tensor are not
+// written. Completion is tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int r0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(r0), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most kPending of this thread's bulk groups still read shared memory
+template <int kPending> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+// until at most kPending of this thread's bulk groups are incomplete
+template <int kPending> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// this thread's shared-memory writes made visible to the async proxy (a
+// TMA store or a wgmma that reads them next)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// named barrier `id` (1-15) over `count` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- warpgroup register hand-over ----------------------------------------

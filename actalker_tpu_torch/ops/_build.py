@@ -44,18 +44,21 @@ class Kernel:
     """One hand-written kernel: its source, its built library and a plain
     integer count of the launches made through ``launch``."""
 
-    def __init__(self, name: str, replaces: str):
-        """``replaces``: file:line of the TPU kernel this one ports."""
+    def __init__(self, name: str, replaces: str, flags: Sequence[str] = ()):
+        """``replaces``: file:line of the TPU kernel this one ports;
+        ``flags``: extra nvcc flags (e.g. a tool's ``-D`` compile-time
+        variant), part of the library's hash."""
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.replaces = replaces
+        self.flags = tuple(flags)
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
 
     def _digest(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + self.flags).encode())
         for path in (self.source,) + tuple(
                 os.path.join(CSRC, x) for x in _HEADERS):
             with open(path, "rb") as f:
@@ -72,7 +75,8 @@ class Kernel:
         t0 = time.perf_counter()
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, self.source]
+            cmd = [_nvcc(), *NVCC_FLAGS, *self.flags, "-I", CSRC, "-o", tmp,
+                   self.source]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(

@@ -10,6 +10,11 @@ forward and differentiates ``geglu_mlp_xla`` in its backward, as the JAX
 package's ``_mlp_bwd`` recomputes through ``_mlp_xla``: its products take
 and return the weights' dtype, so the backward's GEMMs run in bf16 as the
 JAX package's do.
+
+K4 is two launches of one GEMM engine, each under a plan that ``plans``
+picks from the shapes alone (``csrc/geglu_mlp.cu`` says what each does);
+each launch counts its plan as ``k4.plan.<name>``
+(``utils/observability.count``).
 """
 from __future__ import annotations
 
@@ -19,11 +24,28 @@ import torch
 
 from actalker_tpu_torch.ops._build import (
     Kernel, check, check_cuda_tensors, needs_grad, ptr, stream_of)
+from actalker_tpu_torch.utils.observability import count
 
 KERNEL = Kernel("geglu_mlp", replaces="actalker_tpu/ops/mlp.py:47")
 
 _BF16 = (torch.bfloat16,)
 _F32 = (torch.float32,)
+
+# the C entries' plan numbers (csrc/geglu_mlp.cu, ``Plan``)
+PLANS = {"in_resident": 0, "in_stream": 1, "out_tma": 2, "out_regs": 3}
+# in_resident keeps a 128-row block of x whole in shared memory: its K up to
+# C = 320, and a block per row block, so the card's 132 SMs each want one
+RESIDENT_C = 320
+RESIDENT_MIN_M = 128 * 132
+
+
+def plans(m: int, c: int, inner: int, cout: int):
+    """(GEGLU launch plan, output projection plan) for x (M, C), I = inner
+    hidden units and Cout outputs: x's rows stay in shared memory where they
+    fit and fill the card, and y is stored by TMA where its rows are 16-byte
+    strided. A function of the shapes alone."""
+    first = "in_resident" if c <= RESIDENT_C and m >= RESIDENT_MIN_M else "in_stream"
+    return first, "out_tma" if cout % 8 == 0 else "out_regs"
 
 
 def _gelu_erf(x):
@@ -68,10 +90,13 @@ def _geglu_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     h = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     y = torch.empty((m, cout), dtype=x.dtype, device=x.device)
     stream = stream_of(x)
-    KERNEL.launch("geglu_in_bf16", "ppppiiip", ptr(x2), ptr(w1), ptr(b1),
-                  ptr(h), m, c, inner, stream)
-    KERNEL.launch("linear_bias_bf16", "ppppiiip", ptr(h), ptr(w2), ptr(b2),
-                  ptr(y), m, inner, cout, stream)
+    first, second = plans(m, c, inner, cout)
+    KERNEL.launch("geglu_in_bf16", "ppppiiiip", ptr(x2), ptr(w1), ptr(b1),
+                  ptr(h), m, c, inner, PLANS[first], stream)
+    count("k4.plan." + first, 1)
+    KERNEL.launch("linear_bias_bf16", "ppppiiiip", ptr(h), ptr(w2), ptr(b2),
+                  ptr(y), m, inner, cout, PLANS[second], stream)
+    count("k4.plan." + second, 1)
     return y.reshape(*x.shape[:-1], cout)
 
 

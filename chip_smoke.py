@@ -16,7 +16,8 @@ Phases, one line each (any failure raises and exits non-zero):
      together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the clip, training, lineage and CLI paths give it (K1 also
-     at the gather's compacted lengths, K7-LN at the audio encoder's
+     at the gather's compacted lengths, K4 at the 576 px cell's four
+     feed-forwards, K7-LN at the audio encoder's
      (1500, 384) fp32), same inputs,
      fp32 accumulation in the plain version, with CUDA-event times
      (median), the time of one PyTorch library call computing the same
@@ -872,11 +873,16 @@ def kernel_cases(torch, dev, gen, tp=1):
         return F.linear(h, w2, b2)
 
     # the window-step's feed-forwards (res-64, -32, -16 and the res-8 mid
-    # block), and C = 1280 at res-64's M (off the path); a tp rank holds
-    # H / tp of the 4C hidden units (its partial output, bias zero)
+    # block), C = 1280 at res-64's M (off the path), and the 576 px cell's
+    # (4 CFG x 25 frames at res-72, -36, -18 and the res-9 mid block); a tp
+    # rank holds H / tp of the 4C hidden units (its partial output, bias
+    # zero)
     for m, c, what in ((56 * 4096, 320, "res-64"), (56 * 1024, 640, "res-32"),
                        (56 * 256, 1280, "res-16"), (56 * 64, 1280, "res-8"),
-                       (56 * 4096, 1280, "off the path"))[:5 if tp == 1 else 4]:
+                       (56 * 4096, 1280, "off the path"),
+                       (100 * 5184, 320, "576 px res-72"), (100 * 1296, 640, "576 px res-36"),
+                       (100 * 324, 1280, "576 px res-18"), (100 * 81, 1280, "576 px res-9"),
+                       )[:9 if tp == 1 else 4]:
         x, hid = rnd(m, c), 4 * c // tp
         w1, b1 = rnd(2 * hid, c, scale=c ** -0.5), rnd(2 * hid, dtype=torch.float32, scale=0.1)
         w2 = rnd(c, hid, scale=(4 * c) ** -0.5)

@@ -240,6 +240,85 @@ def test_k4_geglu_mlp_widths(dev, m, c, cout):
     assert _rel(y, mlp.geglu_mlp_ref(*args)) < 5e-3
 
 
+def _k4_call(args):
+    """K4 through the wrapper, with its two launches and the plans they
+    counted (``k4.plan.*``): (y, launches, {plan: count})."""
+    from actalker_tpu_torch.utils import observability as obs
+
+    n0 = mlp.KERNEL.launches
+    obs.reset()
+    with obs.tracing():
+        y = mlp.geglu_mlp(*args)
+        counted = {k: v for k, v in obs.span_table()["counters"].items()
+                   if k.startswith("k4.plan.")}
+    obs.reset()
+    return y, mlp.KERNEL.launches - n0, counted
+
+
+def _k4_ref(args, rows=1 << 16):
+    """``geglu_mlp_ref`` in row chunks (its fp32 [h | g] at 518400 rows
+    would take 5 GB)."""
+    x, w1, b1, w2, b2 = args
+    return torch.cat([mlp.geglu_mlp_ref(x[i:i + rows], w1, b1, w2, b2)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def _k4_check(dev, m, c, inner, cout, zero_b2=False, tol=5e-3):
+    gen = torch.Generator(device=dev).manual_seed(m + c + inner + cout)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    args = (rn(m, c).bfloat16(), (rn(2 * inner, c) * c ** -0.5).bfloat16(),
+            0.1 * rn(2 * inner), (rn(cout, inner) * inner ** -0.5).bfloat16(),
+            torch.zeros(cout, device=dev) if zero_b2 else 0.1 * rn(cout))
+    y, launches, counted = _k4_call(args)
+    first, second = mlp.plans(m, c, inner, cout)
+    assert launches == 2                           # two GEMM launches per call
+    assert counted == {"k4.plan." + first: 1, "k4.plan." + second: 1}
+    assert y.shape == (m, cout) and torch.isfinite(y.float()).all()
+    assert _rel(y, _k4_ref(args)) < tol
+    return first, second
+
+
+# the 576 px cell's feed-forwards: (M, C, I, Cout) at res-72, -36, -18 and
+# the res-9 mid block (100 frames x the level's tokens)
+K4_576 = [(518400, 320, 1280, 320), (129600, 640, 2560, 640),
+          (32400, 1280, 5120, 1280), (8100, 1280, 5120, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,inner,cout", K4_576)
+def test_k4_cell_shapes(dev, m, c, inner, cout):
+    """K4 at infer576.mode0-facebox's shapes, each launch under the plan
+    ``mlp.plans`` picks (tol 5e-3, as above)."""
+    _k4_check(dev, m, c, inner, cout)
+
+
+# each plan's tile edges: M around one and two 64-row halves and 128-row
+# tiles (the resident plan: past its 16896-row floor by as much); I no
+# multiple of the GEGLU tile's 80 columns, Cout none of the projection's
+# 160, Cout != C, Cout % 8 != 0 (the register-store plan)
+K4_EDGES = [(m, c, inner, cout) for m in (1, 63, 64, 65, 127, 129)
+            for c, inner, cout in ((320, 1280, 320), (72, 296, 200), (40, 160, 18))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,inner,cout", K4_EDGES)
+def test_k4_plan_edges(dev, m, c, inner, cout):
+    """Every plan at its tile edges; the resident plan past its row floor
+    (tol 5e-3, as above)."""
+    _k4_check(dev, m, c, inner, cout)
+    if c <= mlp.RESIDENT_C:
+        assert _k4_check(dev, mlp.RESIDENT_MIN_M + m, c, inner, cout)[0] == "in_resident"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(518400, 320), (mlp.RESIDENT_MIN_M + 65, 320),
+                                 (129600, 640), (300, 1280)])
+def test_k4_tp_rank(dev, m, c):
+    """A tp = 2 rank's share: I / 2 = 2C hidden units, its partial output's
+    bias zero (``parallel/tensor.py``; tol 5e-3, as above)."""
+    _k4_check(dev, m, c, 2 * c, c, zero_b2=True)
+
+
 @pytest.mark.cuda
 def test_k4_views_raise_or_are_handled(dev):
     """TMA reads 16-byte-aligned rows of contiguous tensors: x misaligned by
